@@ -1,0 +1,693 @@
+"""Device clustering engine: exact greedy parity at batch granularity.
+
+Port of rattle_tpu/cluster/bulk.py for one device.  The reference's greedy
+loop (cluster.cpp:124-166) is replayed in O(N/K) decision waves:
+
+  1. BLOCK: take the first K unclustered reads (in greedy order).  Every
+     pair inside the block is decided (gate + join + LIS), and a replay of
+     the sequential absorption (greedy_owner) determines which block reads
+     are true seeds.  A block read can only be absorbed by an EARLIER block
+     read, so seed status is exact.
+  2. SWEEP: the true seeds are scored against every unclustered read after
+     the block in column tiles; each such read joins the EARLIEST winning
+     seed (the reference's first-claim rule).
+  3. Absorbed reads leave the pool; repeat until empty.
+
+Per pair the decision is cluster.cpp:12-65: the bitvector gate
+(``kernels.bv_common``, an integer comparison against the f64-exact tables of
+ops/gates.py), the common-k-mer join (ops/join_device.py), and the LIS +
+anchor filter + f32 variance (``kernels.lis_filter``).  Work is routed
+count-first: one join at the first M tier both counts each pair's matches
+and decides the pairs that fit; the rest are cheap-rejected (bases <= k *
+matches) or scored at the smallest M tier that fits.  The merge rounds
+(cluster.cpp:171-256) run the same machinery over cluster representatives
+with the B->b->0 threshold schedule; a score cache (outcomes are
+threshold-independent) spares re-gated pairs.
+
+Exactness escapes, rescored on the host in f64 like the reference: a match
+count beyond the last M tier, and a variance within VAR_BAND_REL of t_v.
+
+Unlike the JAX engine this one has no static shapes: the gated pair list is
+sized exactly (``nonzero``), so there is no pair budget to overflow and redo,
+and waves are not padded to power-of-two buckets.  The decisions are the
+same; every scatter's indices are unique within its call, so plain masked
+index writes replace JAX's ``.at[].max(mode="drop")``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ClusterParams, bv_threshold_schedule
+from ..device import resolve
+from ..io.hpsio import Cluster, CSeq
+from ..ops import gates
+from ..ops.encode import encode_seq
+from ..ops.join_device import join_expand
+from ..ops.kernels import bv_common, lis_filter
+from ..ops.sketch_device import DeviceSketch, build_device_sketch
+from ..utils import metrics
+from ..utils.varmath import var as exact_var
+from . import oracle
+
+# K classes by pair max-nk: k-mer table slice widths (0 = full kmax)
+K_CLASSES: Tuple[int, ...] = (1024, 2048, 4096, 0)
+# M tiers: match-list capacities; pairs route to the smallest tier that fits
+# their exact match count, > last tier -> exact f64 host scorer
+M_LADDER: Tuple[int, ...] = (128, 512, 2048)
+# pairs per chunk: COUNT_CHUNKS[cls], SCORE_CHUNKS[cls][tier] (bound the
+# [chunk, width] join tensors and the [6, M + 1, chunk] LIS scratch)
+COUNT_CHUNKS: Tuple[int, ...] = (4096, 2048, 1024, 512)
+SCORE_CHUNKS: Tuple[Tuple[int, ...], ...] = ((4096, 2048, 512),
+                                             (2048, 1024, 256),
+                                             (1024, 512, 128),
+                                             (512, 256, 64))
+VAR_BAND_REL = 0.02
+# sweep-phase column tiling: bounds the gate product at [k_block, SWEEP_TILE]
+# regardless of N (the absorb decision is per-column, so tiles are exact)
+SWEEP_TILE = 1 << 16
+# above this many reads the [n^2] cross-round score cache is off (it would
+# be 10 GB/strand at 100k reads); merge rounds then re-score rep pairs
+CACHE_MAX_N = 1 << 14
+ORACLE_CUTOVER = 48
+
+
+def _pow2_at_least(n: int, lo: int) -> int:
+    p = lo
+    while p < n:
+        p *= 2
+    return p
+
+
+# --------------------------------------------------------------------------
+# per-wave device steps
+# --------------------------------------------------------------------------
+
+
+def gate_class_block(bvp_rows, bvc_rows, order_rows, group_rows,
+                     bvp_cols, bvc_cols, order_cols, group_cols, tab,
+                     cache, cache_n: int, row_ids, col_ids, w, strand_val: int,
+                     nk, bounds):
+    """Bitvector gate (cluster.cpp:13-19) + pair compaction + class routing.
+
+    Returns (rows, cols, class_counts): the FRESH gated pairs in row-major
+    order, stably sorted by K-class (pair max-nk against ``bounds``), and
+    the per-class counts on the host.  Cached wins are folded into ``w`` in
+    place and cached pairs (won or lost) are dropped from the list.
+
+    ``group_rows/cols``: pairs from different groups never gate -- this is
+    how --iso batches every gene cluster's sub-clustering into one pass."""
+    common = bv_common(bvp_rows, bvp_cols)
+    mmax = torch.maximum(bvc_rows[:, None], bvc_cols[None, :])
+    passed = (common >= tab[mmax]) \
+        & (order_rows[:, None] < order_cols[None, :]) \
+        & (group_rows[:, None] == group_cols[None, :])
+    rows, cols = torch.nonzero(passed, as_tuple=True)
+    ra = row_ids[rows]
+    rb = col_ids[cols]
+    if cache is not None:
+        cval = cache[ra * cache_n + rb]
+        # (row, col) pairs are unique, so a masked write is the scatter-max
+        cur = w[rows, cols]
+        w[rows, cols] = torch.where(cval == 2,
+                                    torch.clamp(cur, min=strand_val), cur)
+        fresh = cval == 0
+        rows, cols, ra, rb = rows[fresh], cols[fresh], ra[fresh], rb[fresh]
+    pair_nk = torch.maximum(nk[ra], nk[rb])
+    cls = (pair_nk[:, None] > bounds[None, :]).sum(dim=1)
+    cls, order = torch.sort(cls, stable=True)
+    counts = torch.bincount(cls, minlength=bounds.shape[0] + 1)
+    return rows[order], cols[order], counts.tolist()
+
+
+def score_chunk(rows, cols, row_ids, col_ids, hs_a, ps_a, nk, hs_b, ps_b,
+                lens, sc_tab, t_v, var_band, strand_val: int, w, cache,
+                cache_n: int, m_cap: int, kmer_size: int, hc_max_dist: int):
+    """Join + LIS decision for one chunk of (row, col) pairs
+    (similarity.cpp:4-97 + cluster.cpp:24-37).  Wins are written into ``w``
+    and decided outcomes into the score cache, in place.  Returns (border
+    [CH] bool, total [CH] int32): border = variance within the f64 band of
+    t_v (host rescored), total = the exact match count."""
+    a_ids = row_ids[rows]
+    b_ids = col_ids[cols]
+    p1, p2, total = join_expand(hs_a[a_ids], ps_a[a_ids], nk[a_ids],
+                                hs_b[b_ids], ps_b[b_ids], nk[b_ids], m_cap)
+    n_valid = torch.clamp(total, max=m_cap)
+    mvalid = torch.arange(m_cap, device=p1.device)[None, :] < n_valid[:, None]
+    # the scans stop at the chunk's largest match count (exact); the kernel
+    # reads it on the device
+    bound = n_valid.max().reshape(1)
+    bases, _hc, _n_dist, var = lis_filter(p1, p2, mvalid, kmer_size,
+                                          hc_max_dist, bound=bound)
+    mn = torch.minimum(lens[a_ids], lens[b_ids])
+    score_ok = bases >= sc_tab[mn]
+    borderline = torch.abs(var - t_v) <= var_band
+    fits = total <= m_cap
+    win = score_ok & (var < t_v) & ~borderline & fits
+    border = score_ok & borderline & fits
+    decided = fits & ~border
+    cur = w[rows, cols]
+    w[rows, cols] = torch.where(win, torch.clamp(cur, min=strand_val), cur)
+    if cache is not None:
+        flat = a_ids * cache_n + b_ids
+        cache[flat] = torch.where(decided, torch.where(win, 2, 1),
+                                  cache[flat]).to(torch.uint8)
+    return border, total
+
+
+def tier_partition(cnt, pair_cls, lens_min, sc_tab, m_caps: Tuple[int, ...],
+                   kmer_size: int, n_classes: int):
+    """M-tier routing of the pairs the first tier did not fit.
+
+    Per pair: tier key 0 = no further work (decided in tier 0, or cheap
+    reject -- bases <= k * matches can never reach the score threshold),
+    1..T-1 = smallest fitting M tier, T = overflow (exact host scorer).
+    Returns (order, counts [n_classes, T+1] on the host): ``order`` sorts
+    the pairs stably by (class, tier, match count), so every route is a
+    contiguous, count-homogeneous slice (tight LIS bounds)."""
+    t = len(m_caps)
+    reject = kmer_size * cnt < sc_tab[lens_min]
+    tier = torch.zeros_like(cnt)
+    for m in m_caps:
+        tier = tier + (cnt > m).to(cnt.dtype)
+    tierkey = torch.where((tier == 0) | reject, 0, tier)
+    key = pair_cls * (t + 1) + tierkey
+    comp = key.to(torch.int64) * 2048 + torch.clamp(cnt, max=2047)
+    order = torch.sort(comp, stable=True).indices
+    counts = torch.bincount(key, minlength=n_classes * (t + 1))
+    return order, np.asarray(counts.tolist()).reshape(n_classes, t + 1)
+
+
+def greedy_owner(w: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Exact replay of the reference's greedy absorption (cluster.cpp:124-166)
+    inside one block.  ``w`` [K, K] int8: 0 no, 1 reverse win, 2 forward win
+    (row = earlier position).  Returns packed [K] int32 = (owner << 1) | rev.
+
+    One step per read that wins at least one later read (a read without
+    wins claims nothing, seed or not); each step is a few tiny launches."""
+    n = w.shape[0]
+    dev = w.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    live = (iota[None, :] > iota[:, None]) & (iota[None, :] < n_valid)
+    wins = (w > 0) & live
+    rev_w = w == 1
+    owner = iota.clone()
+    rev = torch.zeros(n, dtype=torch.bool, device=dev)
+    unclaimed = torch.ones(n, dtype=torch.bool, device=dev)
+    steps = torch.nonzero(wins[:n_valid].any(dim=1)).flatten().tolist()
+    for i in steps:
+        newly = wins[i] & unclaimed & unclaimed[i]
+        owner = torch.where(newly, i, owner)
+        rev = torch.where(newly, rev_w[i], rev)
+        unclaimed = unclaimed & ~newly
+    return (owner << 1) | rev.to(torch.int32)
+
+
+def absorb_rest(w: torch.Tensor) -> torch.Tensor:
+    """Sweep-phase absorption: each column joins the EARLIEST winning seed
+    row (first-claim, cluster.cpp:141-150).  w [S, C] int8.  Returns packed
+    [C] int32 = (seed_row << 1) | rev, or -1."""
+    has = w > 0
+    first = torch.argmax(has.to(torch.uint8), dim=0)   # first max index
+    won = has.any(dim=0)
+    val = torch.gather(w, 0, first[None, :])[0]
+    packed = (first.to(torch.int32) << 1) | (val == 1).to(torch.int32)
+    return torch.where(won, packed, -1)
+
+
+# --------------------------------------------------------------------------
+# engine
+# --------------------------------------------------------------------------
+
+
+class BulkClusterEngine:
+    """Drop-in ``engine`` for pipeline.run_cluster; exact reference parity."""
+
+    def __init__(self, seqs: Sequence[str], params: ClusterParams,
+                 sketch: Optional[DeviceSketch] = None,
+                 groups: Optional[np.ndarray] = None, device="cuda"):
+        if params.use_hc:
+            # unreachable from the reference CLI (no main.cpp flag sets
+            # use_hc); score_chunk gates on `bases`
+            raise NotImplementedError("use_hc not supported by the bulk "
+                                      "engine; use the oracle engine")
+        self.p = params
+        self.device = resolve(device)
+        self.seqs = list(seqs)
+        self.n = len(self.seqs)
+        self.read_lens = [len(s) for s in self.seqs]
+        self.sk = sketch if sketch is not None else build_device_sketch(
+            self.seqs, params.kmer_size, not params.is_rna,
+            device=self.device)
+        sk = self.sk
+        self.k_block = min(4096, self.n)
+        self.sweep_cpad = min(SWEEP_TILE, self.n)
+        # per-K-class table slices (narrower joins for shorter reads)
+        full_w = _pow2_at_least(sk.kmax, 128)
+        widths = sorted({min(w, full_w) for w in K_CLASSES if w} | {full_w})
+        self.class_bounds = widths[:-1]
+        self.n_classes = len(widths)
+        self._cls_tabs = []
+        for wid in widths:
+            wid = min(wid, sk.kmax)  # entries past nk are never read
+            tabs = {"hs": sk.hs[:, :wid], "ps": sk.ps[:, :wid]}
+            if not params.is_rna:
+                tabs["rev_hs"] = sk.rev_hs[:, :wid]
+                tabs["rev_ps"] = sk.rev_ps[:, :wid]
+            self._cls_tabs.append(tabs)
+        self._bounds_dev = torch.tensor(self.class_bounds, dtype=torch.int32,
+                                        device=self.device)
+        # M ladder clamped to the input scale: tiers above ~kmax would run
+        # giant scans for pairs the host scorer decides exactly
+        top_m = _pow2_at_least(min(M_LADDER[-1], sk.kmax), M_LADDER[0])
+        self.m_ladder = tuple(m for m in M_LADDER if m <= top_m) or (top_m,)
+        self.score_min = torch.from_numpy(gates.min_numerator_table(
+            max(self.read_lens), params.t_s)).to(self.device)
+        self._bv_tables: Dict[float, torch.Tensor] = {}
+        self._oracle_kmers: Dict[int, oracle.ReadKmers] = {}
+        self._host_cache: Dict[Tuple[int, int, bool], bool] = {}
+        self.n_oracle_fallbacks = 0
+        self.var_band = np.float32(VAR_BAND_REL * max(self.p.t_v, 1.0))
+        # cross-round score cache (outcomes are threshold-independent,
+        # directional: a = seed side); 0 unscored / 1 score-no / 2 score-yes.
+        # uint8 [n^2] per strand: 64 MiB each at 8192 reads, 256 MiB at the
+        # 16384-read cap; off (None) above it.
+        self.cache_n = self.n
+        self._cache: Dict[bool, Optional[torch.Tensor]] = {}
+        for rev in ([False] if params.is_rna else [False, True]):
+            self._cache[rev] = torch.zeros(self.n * self.n, dtype=torch.uint8,
+                                           device=self.device) \
+                if self.n <= CACHE_MAX_N else None
+        self.progress = False  # --verbose progress bar (utils.cpp:57-75)
+        self.checkpoint = None  # utils.checkpoint.ClusterCheckpoint or None
+        # group constraint (--iso batching): reads in different groups are
+        # never compared; default one global group
+        self.groups = np.zeros(self.n, np.int32) if groups is None \
+            else np.asarray(groups, np.int32)
+        self._groups_dev = torch.from_numpy(self.groups).to(self.device)
+        # wall-clock per phase (greedy, merge) and per wave section (gate,
+        # score, rescore, replay), accumulated by cluster()
+        self.phase_times: Dict[str, float] = {}
+
+    # ---------- helpers ----------
+
+    def _bv_table(self, threshold: float) -> torch.Tensor:
+        tab = self._bv_tables.get(threshold)
+        if tab is None:
+            tab = torch.from_numpy(
+                gates.min_numerator_table(4096, threshold)).to(self.device)
+            self._bv_tables[threshold] = tab
+        return tab
+
+    def _class_tables(self, cls_i: int, rev: bool):
+        t = self._cls_tabs[cls_i]
+        return (t["hs"], t["ps"],
+                t["rev_hs"] if rev else t["hs"],
+                t["rev_ps"] if rev else t["ps"])
+
+    def _okm(self, i: int) -> oracle.ReadKmers:
+        km = self._oracle_kmers.get(i)
+        if km is None:
+            km = oracle.extract_kmers(
+                encode_seq(self.seqs[i]), self.p.kmer_size,
+                not self.p.is_rna)
+            self._oracle_kmers[i] = km
+        return km
+
+    def _host_decide(self, a: int, b: int, rev: bool) -> bool:
+        """Exact f64 single-pair decision (score + variance, no gate)."""
+        key = (a, b, rev)
+        hit = self._host_cache.get(key)
+        if hit is not None:
+            return hit
+        self.n_oracle_fallbacks += 1
+        ka, kb = self._okm(a), self._okm(b)
+        if rev:
+            m1, m2 = oracle.common_kmers(ka.hashes, ka.positions,
+                                         kb.rev_hashes, kb.rev_positions)
+        else:
+            m1, m2 = oracle.common_kmers(ka.hashes, ka.positions,
+                                         kb.hashes, kb.positions)
+        sim = oracle.calc_similarity(m1, m2, self.p.kmer_size,
+                                     self.p.hc_max_dist)
+        mn = float(min(self.read_lens[a], self.read_lens[b]))
+        metric = sim.hc_bases if self.p.use_hc else sim.bases
+        ok = bool(metric / mn >= self.p.t_s
+                  and exact_var(sim.distances) < self.p.t_v)
+        self._host_cache[key] = ok
+        return ok
+
+    def _host_rescore_batch(self, batch):
+        """Exact f64 decisions for (rev, a, b, row, col) jobs, batched
+        through the native scorer (falls back to the Python oracle).
+        Yields (rev, a, b, row, col, win)."""
+        todo = []
+        for rev, a, b, r_, c_ in batch:
+            hit = self._host_cache.get((a, b, rev))
+            if hit is None:
+                todo.append((rev, a, b))
+            else:
+                yield rev, a, b, r_, c_, hit
+        done: Dict[Tuple[int, int, bool], bool] = {}
+        if todo:
+            from .. import native
+            from ..ops.sketch import build_sketch_tables
+            if native.available():
+                uniq = sorted({i for _rev, a, b in todo for i in (a, b)})
+                remap = {g: i for i, g in enumerate(uniq)}
+                sub = build_sketch_tables([self.seqs[i] for i in uniq],
+                                          self.p.kmer_size,
+                                          not self.p.is_rna)
+                a_ids = np.array([remap[a] for _rev, a, _b in todo], np.int32)
+                b_ids = np.array([remap[b] for _rev, _a, b in todo], np.int32)
+                revs = np.array([rev for rev, _a, _b in todo], bool)
+                out = native.score_pairs_native(sub, a_ids, b_ids, revs,
+                                                self.p.kmer_size,
+                                                self.p.hc_max_dist)
+                if out is not None:
+                    lens = np.asarray(self.read_lens, dtype=np.int64)
+                    mn = np.minimum(
+                        lens[[a for _r, a, _b in todo]],
+                        lens[[b for _r, _a, b in todo]]).astype(np.float64)
+                    metric = out["hc"] if self.p.use_hc else out["bases"]
+                    with np.errstate(invalid="ignore"):
+                        ok = (metric.astype(np.float64) / mn >= self.p.t_s) \
+                            & (out["var"] < self.p.t_v)
+                    self.n_oracle_fallbacks += len(todo)
+                    for (rev, a, b), o in zip(todo, ok):
+                        done[(a, b, rev)] = bool(o)
+                        self._host_cache[(a, b, rev)] = bool(o)
+        for rev, a, b, r_, c_ in batch:
+            key = (a, b, rev)
+            if key in done:
+                yield rev, a, b, r_, c_, done[key]
+            elif key not in self._host_cache:
+                yield rev, a, b, r_, c_, self._host_decide(a, b, rev)
+
+    # ---------- one batched decision wave ----------
+
+    def _score_range(self, rows, cols, cls_i: int, chunk: int, m_cap: int,
+                     d_row_ids, d_col_ids, rev: bool, w, consts):
+        """score_chunk over one class's contiguous pair slice, ``chunk``
+        pairs at a time; returns (border, total) for the slice."""
+        sk = self.sk
+        hs_a, ps_a, hs_b, ps_b = self._class_tables(cls_i, rev)
+        parts = [score_chunk(
+            rows[s:s + chunk], cols[s:s + chunk], d_row_ids, d_col_ids, hs_a,
+            ps_a, sk.nk, hs_b, ps_b, sk.lens, self.score_min, *consts,
+            1 if rev else 2, w, self._cache[rev], self.cache_n, m_cap,
+            self.p.kmer_size, self.p.hc_max_dist)
+            for s in range(0, rows.shape[0], chunk)]
+        return (torch.cat([b for b, _ in parts]),
+                torch.cat([t for _, t in parts]))
+
+    def _wave(self, row_ids: np.ndarray, col_ids: np.ndarray,
+              threshold: float, ordered: bool) -> np.ndarray:
+        """One decision wave, per strand:
+
+          gate_class_block: gate + compaction + class sort
+          tier-0 pass x class: match counts + decisions of the pairs that fit
+          tier_partition: cheap-reject + M-tier routing of the rest
+          score pass x (class, tier): the remaining decisions
+
+        then the rare paths (borderline variance, match-count overflow:
+        exact host rescore patched into ``w``) and the replay (greedy_owner
+        for an ordered block, absorb_rest for a sweep).
+
+        ``ordered``: rows/cols are the same greedy-ordered list (block
+        phase) -- only pairs with row position < col position are tested.
+        Otherwise every (row, col) pair is tested (sweep phase; rows are
+        seeds, all of which precede all cols in greedy order).
+
+        Returns the packed replay vector (np.int32)."""
+        sk = self.sk
+        dev = self.device
+        a = len(row_ids)
+        c = len(col_ids)
+        tab = self._bv_table(threshold)
+        d_row_ids = torch.from_numpy(row_ids.astype(np.int64)).to(dev)
+        d_col_ids = torch.from_numpy(col_ids.astype(np.int64)).to(dev)
+        group_rows = self._groups_dev[d_row_ids]
+        group_cols = self._groups_dev[d_col_ids]
+        bvp_rows = sk.bvp[d_row_ids]
+        bvc_rows = sk.bvc[d_row_ids]
+        bvc_cols = sk.bvc[d_col_ids]
+        if ordered:
+            order_rows = torch.arange(a, device=dev)
+            order_cols = torch.arange(c, device=dev)
+        else:
+            order_rows = torch.zeros(a, dtype=torch.int64, device=dev)
+            order_cols = torch.ones(c, dtype=torch.int64, device=dev)
+        consts = (torch.tensor(self.p.t_v, dtype=torch.float32, device=dev),
+                  torch.tensor(float(self.var_band), dtype=torch.float32,
+                               device=dev))
+        t_lad = len(self.m_ladder)
+        m0 = self.m_ladder[0]
+
+        w = torch.zeros((a, c), dtype=torch.int8, device=dev)
+        host_jobs: List[Tuple[bool, int, int, int, int]] = []
+        strands = [False] if self.p.is_rna else [False, True]
+        for rev in strands:
+            t0 = time.perf_counter()
+            bvp_cols = (sk.rev_bvp if rev else sk.bvp)[d_col_ids]
+            rows, cols, cls_counts = gate_class_block(
+                bvp_rows, bvc_rows, order_rows, group_rows,
+                bvp_cols, bvc_cols, order_cols, group_cols, tab,
+                self._cache[rev], self.cache_n, d_row_ids, d_col_ids, w,
+                1 if rev else 2, sk.nk, self._bounds_dev)
+            t0 = self._tick("gate", t0)
+            if rows.shape[0] == 0:
+                continue
+            # tier 0: one join per pair counts its matches and decides it
+            # when they fit the first M tier
+            starts = np.cumsum([0] + cls_counts)
+            first = [self._score_range(
+                rows[starts[i]:starts[i + 1]], cols[starts[i]:starts[i + 1]],
+                i, COUNT_CHUNKS[i], m0, d_row_ids, d_col_ids, rev, w, consts)
+                for i in range(self.n_classes) if cls_counts[i]]
+            borders = [(rows, cols, torch.cat([b for b, _ in first]))]
+            cnt = torch.cat([t for _, t in first])
+            ra = d_row_ids[rows]
+            rb = d_col_ids[cols]
+            pair_cls = torch.repeat_interleave(
+                torch.arange(self.n_classes, device=dev),
+                torch.tensor(cls_counts, device=dev))
+            order, counts = tier_partition(
+                cnt, pair_cls, torch.minimum(sk.lens[ra], sk.lens[rb]),
+                self.score_min, self.m_ladder, self.p.kmer_size,
+                self.n_classes)
+            srows, scols = rows[order], cols[order]
+            off = 0
+            for cls_i in range(self.n_classes):
+                for tier_i in range(t_lad + 1):
+                    n_r = int(counts[cls_i, tier_i])
+                    sl = slice(off, off + n_r)
+                    off += n_r
+                    if n_r == 0 or tier_i == 0:
+                        continue  # tier 0: decided or rejected above
+                    if tier_i == t_lad:
+                        # match-count overflow beyond the last tier: host f64
+                        border = torch.ones(n_r, dtype=torch.bool, device=dev)
+                    else:
+                        border, _ = self._score_range(
+                            srows[sl], scols[sl], cls_i,
+                            SCORE_CHUNKS[cls_i][tier_i],
+                            self.m_ladder[tier_i], d_row_ids, d_col_ids, rev,
+                            w, consts)
+                    borders.append((srows[sl], scols[sl], border))
+            r_all, c_all, m_all = (torch.cat(x) for x in zip(*borders))
+            sel = torch.nonzero(m_all).flatten()
+            for rr, cc in zip(r_all[sel].tolist(), c_all[sel].tolist()):
+                host_jobs.append((rev, int(row_ids[rr]), int(col_ids[cc]),
+                                  rr, cc))
+            self._tick("score", t0)
+        t0 = time.perf_counter()
+        if host_jobs:
+            self._patch_host(w, host_jobs)
+            t0 = self._tick("rescore", t0)
+        replay = greedy_owner(w, a) if ordered else absorb_rest(w)
+        packed = replay.cpu().numpy()
+        self._tick("replay", t0)
+        return packed
+
+    def _tick(self, name: str, t0: float) -> float:
+        """Add the host time since ``t0`` to phase ``name``; returns now.
+        Every section ends in a device->host read, so the host time covers
+        the section's device work too."""
+        now = time.perf_counter()
+        self.phase_times[name] = self.phase_times.get(name, 0.0) + now - t0
+        return now
+
+    def _patch_host(self, w, host_jobs) -> None:
+        """Borderline-variance and match-count-overflow pairs: exact f64
+        host rescore (cluster.cpp exactness contract), patched into w."""
+        best: Dict[Tuple[int, int], int] = {}
+        for rev, _a, _b, r_, c_, ok in self._host_rescore_batch(host_jobs):
+            if ok:
+                val = 1 if rev else 2
+                best[(r_, c_)] = max(best.get((r_, c_), 0), val)
+        if not best:
+            return
+        arr = torch.tensor([(r_, c_, v) for (r_, c_), v in best.items()],
+                           dtype=torch.int64, device=w.device)
+        cur = w[arr[:, 0], arr[:, 1]]
+        w[arr[:, 0], arr[:, 1]] = torch.maximum(cur, arr[:, 2].to(torch.int8))
+
+    # ---------- frontier greedy ----------
+
+    def _greedy_pass(self, ids: np.ndarray, threshold: float):
+        """Frontier-exact greedy absorption over ``ids`` (greedy order).
+        Returns [(seed_pos, [(member_pos, rev), ...])] in seed order."""
+        m = len(ids)
+        owner = np.arange(m)
+        revf = np.zeros(m, bool)
+        pool = np.arange(m)
+        k = self.k_block
+        while len(pool):
+            if self.progress:
+                metrics.print_progress(m - len(pool), m)
+            blk = pool[:k]
+            nb = len(blk)
+            packed = self._wave(ids[blk], ids[blk], threshold,
+                                ordered=True)[:nb]
+            o = packed >> 1
+            owner[blk] = blk[o]
+            revf[blk] = (packed & 1).astype(bool)
+            seeds = blk[o == np.arange(nb)]
+            rest = pool[k:]
+            if len(rest) == 0:
+                break
+            # all true seeds of this block sweep the remaining pool in
+            # bounded column tiles (the first-claim absorb decision is
+            # per-column, so tiling is exact)
+            survivors = []
+            for t0_col in range(0, len(rest), self.sweep_cpad):
+                tile = rest[t0_col:t0_col + self.sweep_cpad]
+                pk = self._wave(ids[seeds], ids[tile], threshold,
+                                ordered=False)[:len(tile)]
+                won = pk >= 0
+                owner[tile[won]] = seeds[(pk[won] >> 1)]
+                revf[tile[won]] = (pk[won] & 1).astype(bool)
+                survivors.append(tile[~won])
+            pool = np.concatenate(survivors) if survivors else rest[:0]
+        if self.progress:
+            metrics.print_progress(m, m)
+        groups: Dict[int, List[Tuple[int, bool]]] = {}
+        for pos in range(m):
+            groups.setdefault(int(owner[pos]), []).append(
+                (pos, bool(revf[pos])))
+        return [(seed, groups[seed]) for seed in sorted(groups)]
+
+    # ---------- public API ----------
+
+    def cluster(self) -> List[Cluster]:
+        p = self.p
+        ck = self.checkpoint
+        schedule = list(bv_threshold_schedule(p))
+        phases_done = 0
+        clusters: List[Cluster] = []
+        if ck is not None:
+            resume = ck.load()
+            if resume is not None:
+                phases_done, clusters = resume
+
+        if phases_done == 0:
+            order = np.arange(self.n)
+            t0 = time.time()
+            groups = self._greedy_pass(order, p.bv_threshold)
+            self.phase_times["greedy"] = time.time() - t0
+            for _seed, members in groups:
+                cseqs = [CSeq(m_, r_) for m_, r_ in members]
+                main = oracle.get_main_seq(cseqs, self.read_lens,
+                                           p.repr_percentile)
+                clusters.append(Cluster(main, cseqs))
+            phases_done = 1
+            if ck is not None:
+                ck.record(phases_done, clusters)
+
+        t0 = time.time()
+        for round_i, threshold in enumerate(schedule):
+            if round_i + 1 < phases_done:
+                continue  # merge round already checkpointed
+            reps = np.array([c.main_seq.seq_id for c in clusters])
+            merge_groups = self._greedy_pass(reps, threshold)
+            tmp: List[Cluster] = []
+            for _seed_cid, members in merge_groups:
+                merged = Cluster(CSeq(-1, False), [])
+                for cid, rev in members:
+                    for s in clusters[cid].seqs:
+                        merged.seqs.append(
+                            CSeq(s.seq_id, (not s.rev) if rev else s.rev,
+                                 s.gene_id))
+                merged.main_seq = oracle.get_main_seq(
+                    merged.seqs, self.read_lens, p.repr_percentile)
+                tmp.append(merged)
+            clusters = tmp
+            phases_done = round_i + 2
+            if ck is not None:
+                ck.record(phases_done, clusters)
+        self.phase_times["merge"] = time.time() - t0
+        return clusters
+
+
+def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
+                       progress: bool = False,
+                       groups: Optional[np.ndarray] = None,
+                       checkpoint_dir: Optional[str] = None,
+                       device="cuda") -> List[Cluster]:
+    """Engine entry point for pipeline.run_cluster.
+
+    ``groups``: optional per-read group ids.  Reads in different groups are
+    never compared and sub-clusterings of all groups run in ONE batched
+    device pass -- this is how --iso clusters every gene cluster's members
+    at once (main.cpp:280-323).  Output order matches the reference's
+    per-group emission because group member positions are contiguous and
+    clusters emit in seed order.
+
+    Phase times and the host-rescore count are added to
+    ``utils.metrics.GLOBAL`` (stages ``cluster.greedy``/``cluster.merge``,
+    counter ``cluster.host_rescores``)."""
+    if len(seqs) < ORACLE_CUTOVER:
+        if groups is None:
+            return oracle.cluster_reads(seqs, params, progress=progress)
+        out: List[Cluster] = []
+        g_arr = np.asarray(groups)
+        for g in np.unique(g_arr):
+            idx = np.nonzero(g_arr == g)[0]
+            for c in oracle.cluster_reads([seqs[i] for i in idx], params):
+                main = CSeq(int(idx[c.main_seq.seq_id]), c.main_seq.rev)
+                mem = [CSeq(int(idx[s.seq_id]), s.rev) for s in c.seqs]
+                out.append(Cluster(main, mem))
+        return out
+    engine = BulkClusterEngine(seqs, params, groups=groups, device=device)
+    engine.progress = progress
+    if checkpoint_dir is not None:
+        # phase-granular resume (utils/checkpoint.py ClusterCheckpoint);
+        # the key guards against reusing a manifest after the inputs or
+        # params changed: full length vector + a 64-read content sample
+        h = hashlib.sha256(
+            np.asarray([len(s) for s in seqs], np.int64).tobytes())
+        for i in range(0, len(seqs), max(1, len(seqs) // 64)):
+            h.update(seqs[i].encode())
+        if groups is not None:
+            h.update(np.asarray(groups, np.int64).tobytes())
+        from ..utils.checkpoint import ClusterCheckpoint, params_key
+        key = params_key(params=dataclasses.asdict(params), n=len(seqs),
+                         digest=h.hexdigest())
+        engine.checkpoint = ClusterCheckpoint(checkpoint_dir, key)
+    out = engine.cluster()
+    if engine.checkpoint is not None:
+        # the returned clusters become the stage artifact immediately; the
+        # manifest's job (surviving a crash mid-stage) is done
+        engine.checkpoint.finalize()
+    for name, secs in engine.phase_times.items():
+        metrics.GLOBAL.stages["cluster." + name] = \
+            metrics.GLOBAL.stages.get("cluster." + name, 0.0) + secs
+    metrics.GLOBAL.add("cluster.host_rescores", engine.n_oracle_fallbacks)
+    return out

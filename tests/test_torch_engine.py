@@ -1,0 +1,169 @@
+"""The port's BulkClusterEngine on the CPU vs the JAX BulkClusterEngine and
+the NumPy oracle: identical clusters (``_sig`` as in
+tests/test_bulk_engine.py)."""
+
+import numpy as np
+import pytest
+
+from rattle_tpu.cluster import oracle
+from rattle_tpu.cluster.bulk import BulkClusterEngine as JaxEngine
+from rattle_tpu.config import ClusterParams as JaxParams
+from rattle_tpu.ops.encode import reverse_complement_str
+from rattle_tpu.ops.sketch_device import build_device_sketch as jax_sketch
+from rattle_tpu_torch.cluster.bulk import BulkClusterEngine, cluster_reads_bulk
+from rattle_tpu_torch.config import ClusterParams
+from rattle_tpu_torch.ops.sketch_device import sketch_from_numpy
+from rattle_tpu_torch.utils.checkpoint import ClusterCheckpoint
+from tests.conftest import make_read, mutate
+
+
+def _sig(clusters):
+    return [(c.main_seq.seq_id, c.main_seq.rev,
+             [(s.seq_id, s.rev) for s in c.seqs]) for c in clusters]
+
+
+def _families(seed, n_fam=6, per=(6, 14), lo=200, hi=380, err=0.1,
+              revcomp=False):
+    """Length-sorted reads from a few synthetic transcripts."""
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for _ in range(n_fam):
+        ref = make_read(rng, int(rng.integers(lo, hi)))
+        for _ in range(int(rng.integers(*per))):
+            s = mutate(rng, ref, err)
+            if revcomp and rng.random() < 0.5:
+                s = reverse_complement_str(s)
+            seqs.append(s)
+    seqs.sort(key=lambda s: -len(s))
+    return seqs
+
+
+def _params(**kw):
+    return ClusterParams(**kw), JaxParams(**kw)
+
+
+CASES = {
+    "rna": dict(seed=1, kw=dict(is_rna=True)),
+    "cdna": dict(seed=2, kw=dict(is_rna=False), revcomp=True),
+    "iso": dict(seed=3, kw=dict(kmer_size=11, t_s=0.3, t_v=25.0,
+                                is_rna=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_engine_matches_jax_engine_and_oracle(case):
+    c = CASES[case]
+    seqs = _families(c["seed"], revcomp=c.get("revcomp", False))
+    params, jparams = _params(**c["kw"])
+    golden = _sig(oracle.cluster_reads(seqs, params))
+    got = BulkClusterEngine(seqs, params, device="cpu").cluster()
+    assert _sig(got) == golden
+    assert _sig(JaxEngine(seqs, jparams).cluster()) == golden
+
+
+def test_engine_rare_path_all_borderline():
+    """Every score-passing pair goes through the borderline-variance rare
+    path (host f64 rescore + patch): no pair decides on the device."""
+    seqs = _families(4)
+    params = ClusterParams(is_rna=True)
+    eng = BulkClusterEngine(seqs, params, device="cpu")
+    eng.var_band = np.float32(1e12)
+    got = eng.cluster()
+    assert eng.n_oracle_fallbacks > 0
+    assert _sig(got) == _sig(oracle.cluster_reads(seqs, params))
+
+
+def test_engine_rare_path_overflow_tier():
+    """A one-entry M ladder sends every pair with more matches than the first
+    tier through the overflow route (exact host scorer)."""
+    seqs = _families(5, err=0.04)
+    params = ClusterParams(is_rna=False)
+    eng = BulkClusterEngine(seqs, params, device="cpu")
+    eng.m_ladder = (eng.m_ladder[0],)
+    got = eng.cluster()
+    assert eng.n_oracle_fallbacks > 0
+    assert _sig(got) == _sig(oracle.cluster_reads(seqs, params))
+
+
+def test_engine_merge_round_nonidentity_gather():
+    """Merge rounds gather sketch rows by representative read id (a
+    non-identity map) on a 48-256-read input."""
+    seqs = _families(6, n_fam=8, per=(6, 7), lo=200, hi=300, err=0.12)[:50]
+    seqs.sort(key=lambda s: -len(s))
+    params, jparams = _params(is_rna=True)
+    got = _sig(BulkClusterEngine(seqs, params, device="cpu").cluster())
+    assert got == _sig(oracle.cluster_reads(seqs, params))
+    assert got == _sig(JaxEngine(seqs, jparams).cluster())
+
+
+def test_engine_on_jax_sketch():
+    """The port's engine on the JAX engine's own tables, carried over by
+    sketch_from_numpy, gives the JAX engine's clusters."""
+    seqs = _families(7, revcomp=True)
+    params, jparams = _params(is_rna=False)
+    jsk = jax_sketch(seqs, 10, True)
+    sk = sketch_from_numpy(
+        *(np.asarray(getattr(jsk, f)) for f in
+          ("hbp", "hs", "ps", "plane", "nk", "lens", "bvc")),
+        rev_hs=np.asarray(jsk.rev_hs), rev_ps=np.asarray(jsk.rev_ps),
+        rev_plane=np.asarray(jsk.rev_plane), kmer_size=10, device="cpu")
+    got = BulkClusterEngine(seqs, params, sketch=sk, device="cpu").cluster()
+    assert _sig(got) == _sig(JaxEngine(seqs, jparams, sketch=jsk).cluster())
+
+
+def test_engine_groups_and_checkpoint_resume(tmp_path):
+    """--iso batching (groups) and a resume after a crash mid-merge both give
+    the uninterrupted, per-group result."""
+    seqs = _families(8, n_fam=5, per=(10, 14))
+    params = ClusterParams(is_rna=True)
+    groups = np.repeat([0, 1], [len(seqs) // 2, len(seqs) - len(seqs) // 2])
+    want = cluster_reads_bulk(seqs, params, groups=groups, device="cpu")
+    per_group = []
+    for g in (0, 1):
+        idx = np.nonzero(groups == g)[0]
+        for c in oracle.cluster_reads([seqs[i] for i in idx], params):
+            per_group.append((int(idx[c.main_seq.seq_id]), c.main_seq.rev,
+                              [(int(idx[s.seq_id]), s.rev) for s in c.seqs]))
+    assert _sig(want) == per_group
+
+    class Crash(Exception):
+        pass
+
+    class CrashingCheckpoint(ClusterCheckpoint):
+        def record(self, phases_done, clusters):
+            super().record(phases_done, clusters)
+            if phases_done == 2:
+                raise Crash()
+
+    ck_dir = str(tmp_path / "ck")
+    eng = BulkClusterEngine(seqs, params, groups=groups, device="cpu")
+    eng.checkpoint = CrashingCheckpoint(ck_dir, "k")
+    with pytest.raises(Crash):
+        eng.cluster()
+    eng = BulkClusterEngine(seqs, params, groups=groups, device="cpu")
+    eng.checkpoint = ClusterCheckpoint(ck_dir, "k")
+    assert eng.checkpoint.load()[0] == 2
+    assert _sig(eng.cluster()) == _sig(want)
+
+
+def test_replays_match_jax():
+    """greedy_owner (block replay) and absorb_rest (sweep first-claim) on
+    random win matrices, against the JAX versions."""
+    import jax.numpy as jnp
+    import torch
+    from rattle_tpu.cluster import bulk as jbulk
+    from rattle_tpu_torch.cluster import bulk as tbulk
+    rng = np.random.default_rng(11)
+    for n, n_valid in ((64, 64), (96, 70)):
+        w = rng.choice(np.array([0, 1, 2], np.int8), (n, n), p=[.9, .04, .06])
+        w = np.triu(w, 1)
+        w[n_valid:] = 0
+        w[:, n_valid:] = 0
+        ref = np.asarray(jbulk.greedy_owner(jnp.asarray(w),
+                                            jnp.int32(n_valid)))
+        got = tbulk.greedy_owner(torch.from_numpy(w), n_valid).numpy()
+        np.testing.assert_array_equal(got, ref)
+    w = rng.choice(np.array([0, 1, 2], np.int8), (40, 300), p=[.97, .01, .02])
+    np.testing.assert_array_equal(
+        tbulk.absorb_rest(torch.from_numpy(w)).numpy(),
+        np.asarray(jbulk.absorb_rest(jnp.asarray(w))))

@@ -1,0 +1,155 @@
+"""The two kernels' plain versions vs the JAX Pallas kernels (interpret mode)
+and their XLA twins, on the CPU.  The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py (this suite needs
+jax, which the card's machine does not have)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rattle_tpu.ops.lis_select import (anchor_filter_select, lis_build_select,
+                                       lis_reconstruct_select)
+from rattle_tpu.ops.pallas_kernels import (POOL_TILE, bv_common_matmul,
+                                           lis_filter_pallas)
+from rattle_tpu.ops.similarity import _variance
+from rattle_tpu_torch.ops import kernels
+
+
+def _popcount_ref(pool, seed):
+    anded = pool[:, None, :] & seed[None, :, :]
+    return np.bitwise_count(anded).sum(axis=2, dtype=np.int64)
+
+
+def _words(rng, rows, density=1.0):
+    w = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32)
+    return np.where(rng.random((rows, 128)) < density, w, 0).astype(np.uint32)
+
+
+@pytest.mark.parametrize("p,s,density", [(POOL_TILE, 64, 0.3),
+                                         (2 * POOL_TILE, 8, 1.0)])
+def test_bv_common_plain_matches_pallas(p, s, density):
+    rng = np.random.default_rng(p + s)
+    pool = _words(rng, p, density)
+    seed = _words(rng, s)
+    pool[-3:] = 0  # zero padding rows are inert
+    ref = np.asarray(bv_common_matmul(jnp.asarray(pool), jnp.asarray(seed),
+                                      interpret=True))
+    before = kernels.bv_common.launches
+    got = kernels.bv_common(torch.from_numpy(pool.view(np.int32)),
+                            torch.from_numpy(seed.view(np.int32)))
+    assert kernels.bv_common.launches == before  # CPU: plain, no launch
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), _popcount_ref(pool, seed))
+    assert (got.numpy()[-3:] == 0).all()
+
+
+def test_bv_common_ragged_shapes():
+    """No padding contract on the port: any row counts."""
+    rng = np.random.default_rng(9)
+    pool, seed = _words(rng, 37), _words(rng, 5, 0.5)
+    got = kernels.bv_common(torch.from_numpy(pool.view(np.int32)),
+                            torch.from_numpy(seed.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), _popcount_ref(pool, seed))
+
+
+def _match_lists(rng, b, m):
+    """Join-shaped input: matches sorted by (p1, p2), p2 INT32_MAX pads."""
+    n_valid = rng.integers(0, m + 1, size=b).astype(np.int32)
+    p1 = rng.integers(0, 300, size=(b, m))
+    # a colinear majority (long LIS) plus noise, as real pairs have
+    p2 = np.where(rng.random((b, m)) < 0.7, p1 + rng.integers(-3, 4, (b, m)),
+                  rng.integers(0, 300, (b, m)))
+    order = np.lexsort((p2, p1), axis=1)
+    p1 = np.take_along_axis(p1, order, axis=1).astype(np.int32)
+    p2 = np.take_along_axis(p2, order, axis=1).astype(np.int32)
+    valid = np.arange(m)[None, :] < n_valid[:, None]
+    p1 = np.where(valid, p1, 0).astype(np.int32)
+    p2 = np.where(valid, p2, 2**31 - 1).astype(np.int32)
+    return p1, p2, valid, n_valid
+
+
+def _select_twin(p1, p2, valid, k, hc):
+    """The JAX select scans + _variance (rattle_tpu's non-Pallas path)."""
+    p_pred, m_idx, l = lis_build_select(p2, valid)
+    s = lis_reconstruct_select(p_pred, m_idx, l)
+    a1 = jnp.take_along_axis(p1, s, axis=1)
+    a2 = jnp.take_along_axis(p2, s, axis=1)
+    bases, hcb, kept, dist = anchor_filter_select(a1, a2, l, k, hc)
+    n = jnp.maximum(kept - 1, 0)
+    return [np.asarray(x) for x in (bases, hcb, n, _variance(dist, n))]
+
+
+def _assert_lis_equal(got, ref):
+    for g, r in zip(got[:3], ref[:3]):  # bases, hc, n_dist: exact
+        np.testing.assert_array_equal(g, r)
+    # var: f32 with another reduction order (tests/test_lis_pallas.py:45)
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_bound", [False, True])
+def test_lis_plain_matches_pallas_and_select(use_bound):
+    rng = np.random.default_rng(11 + use_bound)
+    b, m, k, hc = 16, 48, 10, 10
+    for _trial in range(3):
+        p1, p2, valid, n_valid = _match_lists(rng, b, m)
+        bound = int(n_valid.max()) if use_bound else None
+        j_bound = None if bound is None else jnp.int32(bound)
+        t_bound = None if bound is None else torch.tensor([bound],
+                                                          dtype=torch.int32)
+        args = (jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid))
+        pallas = [np.asarray(x) for x in lis_filter_pallas(
+            *args, k, hc, interpret=True, bound=j_bound)]
+        twin = _select_twin(*args, k, hc)
+        before = kernels.lis_filter.launches
+        got = [x.numpy() for x in kernels.lis_filter(
+            torch.from_numpy(p1), torch.from_numpy(p2),
+            torch.from_numpy(valid), k, hc, bound=t_bound)]
+        assert kernels.lis_filter.launches == before
+        _assert_lis_equal(got, pallas)
+        _assert_lis_equal(got, twin)
+
+
+def test_lis_bound_truncates_like_pallas():
+    """A bound below some pairs' match counts truncates every scan there,
+    in the plain version exactly as in the Pallas kernel."""
+    rng = np.random.default_rng(21)
+    p1, p2, valid, _ = _match_lists(rng, 16, 64)
+    args = (jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid))
+    pallas = [np.asarray(x) for x in lis_filter_pallas(
+        *args, 10, 10, interpret=True, bound=jnp.int32(20))]
+    got = [x.numpy() for x in kernels.lis_filter(
+        torch.from_numpy(p1), torch.from_numpy(p2), torch.from_numpy(valid),
+        10, 10, bound=torch.tensor(20, dtype=torch.int32))]
+    _assert_lis_equal(got, pallas)
+
+
+def test_wrappers_reject_bad_inputs():
+    x = torch.zeros((4, 128), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        kernels.bv_common(x, x)
+    p = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.lis_filter(p, p, torch.zeros((4, 8), dtype=torch.int8), 10)
+    with pytest.raises(ValueError):
+        kernels.lis_filter(p.T, p.T, torch.zeros((8, 4), dtype=torch.bool), 10)
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises with a clear message; it never falls
+    back.  The library name follows the source hash, so an edited source
+    builds anew."""
+    from rattle_tpu_torch import _ext
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_ext, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _ext.build(["bv_common"])
+    src = tmp_path / "csrc"
+    src.mkdir()
+    monkeypatch.setattr(_ext, "CSRC", str(src))
+    (src / "k.cu").write_text("// one\n")
+    first = _ext.library_path("k")[1]
+    (src / "k.cu").write_text("// two\n")
+    assert _ext.library_path("k")[1] != first
