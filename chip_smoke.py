@@ -5,21 +5,34 @@ Run from the repository root on a machine with a card:
     python3 chip_smoke.py
 
 Phases, each ending in one summary line:
-  1. device and build: the card's name and power limit; both CUDA kernels
-     compiled with nvcc from rattle_tpu_torch/csrc (all at once);
+  1. device and build: the card's name and power limit; the three CUDA
+     kernels compiled with nvcc from rattle_tpu_torch/csrc (all at once);
   2. bv_common against its plain version, exactly, at the main path's
      shapes, with CUDA-event times and the bf16 matmul yardstick;
   3. lis_filter against its plain version at M in {128, 512, 2048};
-  4. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
+  4. poa_align against its plain version, exactly (best score, move count
+     and the packed moves), on read steps captured from pack groups at
+     W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
+     and a lane whose read is unrelated to its graph;
+  5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) on 8,192 reads; in each
-     run every read must land in one cluster and both kernels must have run;
-  5. parity: ``cluster`` (rna, cDNA) and ``cluster --iso`` on 256 reads of
-     the same generator must write the same clusters.out as ``--oracle``,
-     with both kernels launched in the cuda run and none in the oracle's.
+     run every read must land in one cluster and both cluster kernels must
+     have run;
+  6. the correct path: ``correct`` on the ``--rna`` run's reads and
+     clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
+     three widths), then ``polish --rna --summary`` on its consensi.fq;
+  7. parity on 256 reads of the same generator: ``cluster`` (rna, cDNA) and
+     ``cluster --iso`` must write the same clusters.out as ``--oracle``;
+     ``correct`` on cuda the same three files as ``--poa-backend host``
+     with no pack on the host aligner; ``polish`` on cuda the same
+     transcriptome.fq as ``polish --oracle --poa-backend host``.
 
-Launch counts are set to 0 just before each ``cluster`` run and read just
-after it; the kernels line reports those of the ``--rna`` main path.
+Launch counts are set to 0 just before each CLI run and read just after it;
+the kernels line reports bv_common and lis_filter from the ``--rna``
+``cluster`` run and poa_align from the ``correct`` run.  With
+``--kernels-only`` the script stops after phase 4 (a quick build-and-compare
+of the kernels) and prints no final ``ok`` line.
 
 Any failed check ends the run with a non-zero exit.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Scratch
@@ -44,9 +57,16 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense int8 ops/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s on the
+# tensor cores, and int32 ops/s outside them (half the 67 TFLOP/s float32
+# rate: an SM has 64 int32 lanes to its 128 float32 lanes)
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
+PEAK_INT32 = 33.5e12
+# integer operations poa_align spends on one DP cell (the F and diagonal
+# candidates 7, A and the scan term 5, the prefix maximum and E 4, H 1, the
+# direction word and its stores 12, the running best 3)
+POA_OPS_PER_CELL = 32
 
 N_PARITY = 256
 
@@ -208,6 +228,122 @@ def phase_lis(dev):
     return rows
 
 
+POA_CAPTURE_STEP = 12
+POA_LANES = 4
+# transcript lengths whose reads fill the three width configs
+POA_REF_LENS = (900, 1900, 3000)
+WIDTHS = [1024, 2048, 4096]
+
+
+def _capture_step(dev, w: int, n_cap: int, ref_len: int, seed: int):
+    """Grow POA_LANES pack graphs for POA_CAPTURE_STEP read steps on the
+    card through the engine's own ``_step`` (kernel included) and return the
+    inputs of the next step's ``poa_align`` call: a late step, so the graphs
+    hold multi-predecessor nodes."""
+    from rattle_tpu_torch.correct import pack_engine as pe
+    from rattle_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(seed)
+    n_reads = POA_CAPTURE_STEP + 1
+    seqs = np.zeros((POA_LANES, n_reads, w), np.uint8)
+    lens = np.zeros((POA_LANES, n_reads), np.int32)
+    for li in range(POA_LANES):
+        ref = rng.choice(_BASES, int(ref_len * rng.uniform(0.9, 1.0)))
+        reads = sorted((mutate(rng, ref, 0.08)[:w - 2]
+                        for _ in range(n_reads)), key=len, reverse=True)
+        for t, r in enumerate(reads):
+            seqs[li, t, :len(r)] = r
+            lens[li, t] = len(r)
+    st = pe._init_state(
+        torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev),
+        torch.full((POA_LANES,), n_reads, dtype=torch.int32, device=dev),
+        n_cap=n_cap, tot_cap=int(lens.sum(axis=1).max()))
+    for t in range(POA_CAPTURE_STEP):
+        pe._step(st, t, w_eff=w)
+    check(int(st["fallback"].sum()) == 0, f"capture W={w}: a lane fell back")
+    pred_rows, npred, letters = pe.rank_space(st)
+    t = POA_CAPTURE_STEP
+    return [pred_rows, npred, letters, st["n_nodes"].clone(),
+            st["seqs"][:, t, :w].contiguous(), st["lens"][:, t].contiguous(),
+            torch.ones(POA_LANES, dtype=torch.int32, device=dev)]
+
+
+def phase_poa(dev):
+    from rattle_tpu_torch.correct.pack_engine import CONFIGS
+    from rattle_tpu_torch.ops import kernels
+    rows = []
+    for (w, n_cap, _lanes), ref_len in zip(CONFIGS, POA_REF_LENS):
+        args = _capture_step(dev, w, n_cap, ref_len, seed=w)
+        # three more lanes: lane 0 with an empty graph, lane 1 inactive,
+        # lane 2 with a read unrelated to its graph
+        args = [torch.cat([x, x[:3]]) for x in args]
+        e, i, u = POA_LANES, POA_LANES + 1, POA_LANES + 2
+        args[3][e] = 0
+        args[6][i] = 0
+        g = torch.Generator(device=dev).manual_seed(w)
+        slen_u = int(args[5][u])
+        args[4][u, :slen_u] = torch.tensor(
+            list(b"ACGT"), dtype=torch.uint8, device=dev)[torch.randint(
+                0, 4, (slen_u,), generator=g, device=dev)]
+        b = args[2].shape[0]
+        scratch = torch.empty(kernels.poa_scratch_elems(b, n_cap, w),
+                              dtype=torch.int16, device=dev)
+        got = kernels.poa_align(*args, scratch=scratch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = kernels.poa_align_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        (packed, tlen, best), (r_packed, r_tlen, r_best) = got, ref
+        check(torch.equal(best, r_best), f"poa_align W={w}: best differs: "
+              f"{best.tolist()} vs {r_best.tolist()}")
+        check(torch.equal(tlen, r_tlen), f"poa_align W={w}: move count "
+              f"differs: {tlen.tolist()} vs {r_tlen.tolist()}")
+        counts = tlen.tolist()
+        for li, cnt in enumerate(counts):
+            check(torch.equal(packed[li, :cnt], r_packed[li, :cnt]),
+                  f"poa_align W={w}: lane {li} moves differ")
+        nn, sl = args[3].tolist(), args[5].tolist()
+        check(counts[e] == 0 and counts[i] == 0 and best[e] == 0
+              and best[i] == 0, f"poa_align W={w}: empty/inactive lane "
+              "produced moves")
+        for li in range(POA_LANES):
+            check(counts[li] > sl[li] // 2, f"poa_align W={w}: lane {li} "
+                  f"aligned {counts[li]} of {sl[li]} bases")
+        check(0 < counts[u] < counts[2], f"poa_align W={w}: unrelated read "
+              f"aligned {counts[u]} bases")
+        multi = sum(int((args[1][li, :nn[li]] > 1).sum())
+                    for li in range(POA_LANES))
+        check(multi > 0, f"poa_align W={w}: no multi-predecessor rank")
+        ms = time_ms(lambda: kernels.poa_align(*args, scratch=scratch),
+                     reps=5, warmup=1)
+        live = [li for li in range(b) if nn[li] > 0 and li != i]
+        cells = sum(nn[li] * (sl[li] + 1) for li in live)
+        nbytes = (sum(nn[li] * (kernels.POA_PMAX + 2) * 4 + sl[li]
+                      for li in live) + 12 * b + 4 * sum(counts) + 8 * b)
+        ops = cells * POA_OPS_PER_CELL
+        t_ops, t_bytes = ops / PEAK_INT32, nbytes / PEAK_BYTES
+        row = dict(shape=[b, n_cap, w], ranks=nn, read_len=sl, moves=counts,
+                   multi_pred_ranks=multi, cells=cells, ms=ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   max_abs_err=0)
+        rows.append(row)
+        print(f"  poa_align W={w} N={n_cap} lanes={b}: ranks {nn}, read "
+              f"lengths {sl}, moves {counts}, {multi} multi-predecessor "
+              f"ranks; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {cells} cells)")
+        del scratch
+    print("phase 4 poa_align: best, move count and packed moves exact "
+          "against the plain version at W = 1024, 2048, 4096 (captured read "
+          f"step {POA_CAPTURE_STEP}; empty-graph, inactive and "
+          "unrelated-read lanes)")
+    return rows
+
+
 def _cli(argv, capture: bool = False):
     from rattle_tpu_torch.pipeline import cli
     buf = io.StringIO()
@@ -217,8 +353,11 @@ def _cli(argv, capture: bool = False):
     return buf.getvalue()
 
 
-def _cluster_counted(argv):
-    """Run ``cluster`` with both launch counts set to 0 just before it and
+CLUSTER_KERNELS = ("bv_common", "lis_filter")
+
+
+def _counted(argv):
+    """Run one CLI mode with every launch count set to 0 just before it and
     the run's metrics cleared; returns (wall seconds, this run's launches)."""
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.utils import metrics
@@ -227,7 +366,7 @@ def _cluster_counted(argv):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _cli(["cluster", *argv])
+    _cli(argv)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, kernels.launches()
 
@@ -248,8 +387,9 @@ def _main_run(label, reads, flags):
     os.makedirs(out)
     write_fastq(reads, fq)
     torch.cuda.reset_peak_memory_stats()
-    wall, launches = _cluster_counted(["-i", fq, "-o", out, *flags])
-    check(all(launches.values()), f"{label}: a kernel never ran: {launches}")
+    wall, launches = _counted(["cluster", "-i", fq, "-o", out, *flags])
+    check(all(launches[k] for k in CLUSTER_KERNELS),
+          f"{label}: a kernel never ran: {launches}")
     clusters = hpsio.read_clusters(os.path.join(out, "clusters.out"))
     members = [s.seq_id for c in clusters for s in c.seqs]
     check(sorted(members) == list(range(len(reads))),
@@ -298,10 +438,176 @@ def phase_main_path():
           f"{rna['summary_extract_s']:.2f} s")
     cdna = _main_run("cdna", synthetic_reads(MAIN_READS, MAIN_FAMILIES,
                                              MAIN_SEED, revcomp=True), [])[0]
-    print(f"phase 4 main path: cluster --rna and cDNA cluster on {MAIN_READS} "
+    print(f"phase 5 main path: cluster --rna and cDNA cluster on {MAIN_READS} "
           f"reads of {MAIN_FAMILIES} families on cuda, every read in one "
-          "cluster, both kernels launched in each run")
-    return dict(rna=rna, cdna=cdna)
+          "cluster, both cluster kernels launched in each run")
+    return dict(rna=rna, cdna=cdna), fq, clusters_out
+
+
+def _fastq_count(path: str) -> int:
+    from rattle_tpu_torch.io import fastx
+    return len(fastx.read_fastq_plain(path))
+
+
+def _poa_run(argv):
+    """One ``correct`` or ``polish`` run on cuda: (wall seconds, launches,
+    the pack engine's statistics of this run)."""
+    from rattle_tpu_torch.correct import runner
+    for k in list(runner.LAST_STATS):
+        runner.LAST_STATS[k] = 0
+    wall, launches = _counted(argv)
+    return wall, launches, dict(runner.LAST_STATS)
+
+
+def _fmt_stats(st: dict) -> str:
+    fb = {k: v for k, v in st.items() if k.startswith("fb_")}
+    secs = {k: st.get(k, 0.0) for k in ("t_fill_s", "t_steps_s", "t_fetch_s",
+                                        "t_decode_s", "host_wait_s")}
+    return (f"{st['steps']} steps; device {st['device_packs']} packs / "
+            f"{st['device_bases']} bases, host {st['fallback_packs']} packs "
+            f"/ {st['host_bases']} bases {fb}; engine {secs}")
+
+
+def phase_correct(fq: str, clusters_out: str, n_reads: int):
+    """``correct`` on the main path's reads and clusters, then ``polish`` on
+    its consensi, both through the CLI on cuda."""
+    from rattle_tpu_torch.correct.pack_engine import _cfg_for
+    from rattle_tpu_torch.io import fastx, hpsio
+    clusters = hpsio.read_clusters(clusters_out)
+    reads = fastx.read_multiple_inputs([fq], [])
+    # packs the run will form (build_packs: split 200, min_reads 5)
+    widths = {}
+    with_pack = 0
+    biggest = 0
+    for c in clusters:
+        n_files = (len(c.seqs) - 1) // 200 + 1
+        sizes = [len(c.seqs[nf::n_files]) for nf in range(n_files)]
+        with_pack += any(sz > 5 for sz in sizes)
+        for nf, sz in enumerate(sizes):
+            if sz > 5:
+                lmax = max(len(reads[s.seq_id].seq)
+                           for s in c.seqs[nf::n_files])
+                w = _cfg_for(lmax, sz)[0]
+                widths[w] = widths.get(w, 0) + 1
+                biggest = max(biggest, sz)
+    check(sorted(widths) == WIDTHS,
+          f"correct: packs do not cover the three widths: {widths}")
+
+    out = os.path.join(WORK, "correct_out")
+    os.makedirs(out)
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches, st = _poa_run(["correct", "-i", fq, "-c", clusters_out,
+                                   "-o", out])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_corr = _fastq_count(os.path.join(out, "corrected.fq"))
+    n_unc = _fastq_count(os.path.join(out, "uncorrected.fq"))
+    n_cons = _fastq_count(os.path.join(out, "consensi.fq"))
+    check(n_corr + n_unc == n_reads, f"correct: {n_corr} corrected + {n_unc} "
+          f"uncorrected != {n_reads} reads")
+    check(n_cons == with_pack, f"correct: {n_cons} consensi for {with_pack} "
+          "clusters with a pack")
+    check(launches["poa_align"] > 0 and st["device_packs"] > 0,
+          f"correct: the pack engine never ran: {launches} {st}")
+    bases = st["device_bases"] + st["host_bases"]
+    res = dict(reads=n_reads, packs_by_width=widths, largest_pack=biggest,
+               corrected=n_corr, uncorrected=n_unc, consensi=n_cons,
+               correct_s=wall, poa_mbases_per_s=bases / 1e6 / wall,
+               peak_mem_gib=peak, launches=launches, stats=st)
+    print(f"  correct: {n_corr} corrected + {n_unc} uncorrected reads, "
+          f"{n_cons} consensi; packs by width {widths}, largest "
+          f"{biggest} reads; {wall:.2f} s, "
+          f"{res['poa_mbases_per_s']:.4f} Mbases/s aligned, peak "
+          f"{peak:.2f} GiB, launches {launches}")
+    print(f"  correct engine: {_fmt_stats(st)}")
+
+    pout = os.path.join(WORK, "polish_out")
+    os.makedirs(pout)
+    wall_p, launches_p, st_p = _poa_run(
+        ["polish", "-i", os.path.join(out, "consensi.fq"), "-o", pout,
+         "--rna", "--summary"])
+    n_tx = _fastq_count(os.path.join(pout, "transcriptome.fq"))
+    check(1 <= n_tx <= n_cons, f"polish: {n_tx} transcripts from {n_cons} "
+          "consensi")
+    check(os.path.exists(os.path.join(pout, "polish_summary.tsv")),
+          "polish: no polish_summary.tsv")
+    check(all(launches_p[k] for k in CLUSTER_KERNELS),
+          f"polish: a cluster kernel never ran: {launches_p}")
+    res["polish"] = dict(transcripts=n_tx, polish_s=wall_p,
+                         launches=launches_p, stats=st_p)
+    print(f"  polish: {n_tx} transcripts from {n_cons} consensi; "
+          f"{wall_p:.2f} s, launches {launches_p}")
+    print(f"  polish engine: {_fmt_stats(st_p)}")
+    print(f"phase 6 correct path: correct on {n_reads} reads ({wall:.1f} s) "
+          f"and polish --rna --summary ({wall_p:.1f} s) on cuda; every read "
+          "accounted for, one consensus per cluster with a pack, poa_align "
+          "launched")
+    return res
+
+
+def _same_files(a: str, b: str, names, what: str) -> None:
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            check(fa.read() == fb.read(), f"parity {what}: {name} differs")
+
+
+def _parity_correct(fq: str, clusters_out: str):
+    """``correct`` and ``polish`` on cuda against the host path (the Python
+    POA oracle and the oracle cluster engine): byte-identical files."""
+    dirs = {k: os.path.join(WORK, f"parity_correct_{k}")
+            for k in ("cuda", "host")}
+    for d in dirs.values():
+        os.makedirs(d)
+    base = ["correct", "-i", fq, "-c", clusters_out]
+    wall, launches, st = _poa_run(base + ["-o", dirs["cuda"]])
+    check(launches["poa_align"] > 0, "parity correct: poa_align never ran")
+    check(st["fallback_packs"] == 0, "parity correct: packs on the host "
+          f"aligner in the device run: {_fmt_stats(st)}")
+    wall_h, launches_h, _ = _poa_run(base + ["-o", dirs["host"],
+                                             "--poa-backend", "host"])
+    check(launches_h["poa_align"] == 0, "parity correct: --poa-backend host "
+          "launched poa_align")
+    _same_files(dirs["cuda"], dirs["host"],
+                ("corrected.fq", "uncorrected.fq", "consensi.fq"), "correct")
+    wall_p, _, _ = _poa_run(["polish", "-i", os.path.join(
+        dirs["cuda"], "consensi.fq"), "-o", dirs["cuda"], "--rna"])
+    wall_ph, _, _ = _poa_run(["polish", "-i", os.path.join(
+        dirs["host"], "consensi.fq"), "-o", dirs["host"], "--rna", "--oracle",
+        "--poa-backend", "host"])
+    _same_files(dirs["cuda"], dirs["host"], ("transcriptome.fq",), "polish")
+    print(f"  parity correct/polish: byte-identical to the host path "
+          f"(correct cuda {wall:.2f} s, {_fmt_stats(st)}; host oracle "
+          f"{wall_h:.2f} s; polish cuda {wall_p:.2f} s, host "
+          f"{wall_ph:.2f} s)")
+    return dict(correct_s=wall, correct_host_s=wall_h, polish_s=wall_p,
+                polish_host_s=wall_ph, launches=launches, stats=st)
+
+
+def _capacity_fallback():
+    """A pack with reads over the widest config's 4,094 bases goes to the
+    host aligner, counted by cause, beside a pack that runs on the card."""
+    from rattle_tpu_torch.correct import runner
+    from rattle_tpu_torch.correct.pack_engine import PackEngine
+    from rattle_tpu_torch.ops import poa
+    from rattle_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(3)
+    ref = rng.choice(_BASES, 4400)
+    long_pack = sorted((mutate(rng, ref, 0.05).tobytes().decode("ascii")
+                        for _ in range(3)), key=len, reverse=True)
+    check(len(long_pack[0]) > 4094, "fallback: the long read is too short")
+    short_pack = [s[:600] for s in long_pack]
+    params = poa.POAParams()
+    eng = PackEngine(device="cuda")
+    rows = runner.batched_msa([long_pack, short_pack], params, eng)
+    st = eng.stats
+    check(st["fb_length"] == 1 and st["fallback_packs"] == 1
+          and st["device_packs"] == 1, f"fallback: wrong accounting: {st}")
+    check(rows[0] == runner._host_msa(long_pack, params),
+          "fallback: the long pack's rows are not the host aligner's")
+    check(rows[1] == poa.poa_msa(short_pack, params),
+          "fallback: the device pack's rows are not the oracle's")
+    print(f"  capacity fallback: a pack of {len(long_pack[0])}-base reads "
+          "ran on the host aligner (fb_length 1) beside a device pack")
 
 
 def phase_parity():
@@ -320,26 +626,32 @@ def phase_parity():
             out = os.path.join(WORK, f"parity_{label}_{engine}")
             os.makedirs(out)
             extra = ["--oracle"] if engine == "oracle" else []
-            wall, launches = _cluster_counted(["-i", fq, "-o", out, *flags,
-                                               *extra])
+            wall, launches = _counted(["cluster", "-i", fq, "-o", out,
+                                       *flags, *extra])
             runs[engine] = dict(s=wall, launches=launches,
                                 host_rescores=_host_rescores())
             with open(os.path.join(out, "clusters.out"), "rb") as fh:
                 outs.append(fh.read())
-        check(all(runs["cuda"]["launches"].values()),
+        check(all(runs["cuda"]["launches"][k] for k in CLUSTER_KERNELS),
               f"parity {label}: a kernel never ran on cuda: {runs['cuda']}")
         check(not any(runs["oracle"]["launches"].values()),
               f"parity {label}: --oracle launched a kernel: {runs['oracle']}")
         check(outs[0] == outs[1], f"parity {label}: clusters.out differs "
               "from --oracle")
         res[label] = runs
+        if label == "rna":
+            rna_inputs = (fq, os.path.join(WORK, "parity_rna_cuda",
+                                           "clusters.out"))
         print(f"  parity {label}: byte-identical to --oracle (cuda "
               f"{runs['cuda']['s']:.2f} s, launches "
               f"{runs['cuda']['launches']}, "
               f"{runs['cuda']['host_rescores']} host rescores; oracle "
               f"{runs['oracle']['s']:.2f} s)")
-    print(f"phase 5 parity: cluster rna/cDNA and --iso on {N_PARITY} reads "
-          "match --oracle byte for byte")
+    res["correct"] = _parity_correct(*rna_inputs)
+    _capacity_fallback()
+    print(f"phase 7 parity: cluster rna/cDNA and --iso on {N_PARITY} reads "
+          "match --oracle byte for byte; correct and polish match the host "
+          "path byte for byte with no pack on the host aligner")
     return res
 
 
@@ -354,13 +666,20 @@ def main() -> int:
     smi, build_s = phase_device()
     bv_rows = phase_bv_common(dev)
     lis_rows = phase_lis(dev)
-    main_res = phase_main_path()
+    poa_rows = phase_poa(dev)
+    if "--kernels-only" in sys.argv[1:]:
+        print(f"kernel phases only: {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
+    main_res, fq, clusters_out = phase_main_path()
+    correct_res = phase_correct(fq, clusters_out, main_res["rna"]["reads"])
     parity = phase_parity()
+    launches = dict(main_res["rna"]["launches"],
+                    poa_align=correct_res["launches"]["poa_align"])
 
     def record(name, row, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": main_res["rna"]["launches"][name],
+                "replaces": replaces, "launches": launches[name],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
@@ -372,9 +691,15 @@ def main() -> int:
         record("lis_filter", lis_rows[0],
                "rattle_tpu_torch/csrc/lis_filter.cu",
                "rattle_tpu/ops/pallas_kernels.py:264"),
+        # the widest config: full-width reads of up to 4,094 bases
+        record("poa_align", poa_rows[-1],
+               "rattle_tpu_torch/csrc/poa_align.cu",
+               "rattle_tpu/ops/poa_pallas.py:556"),
     ]}
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
-                  lis_filter=lis_rows, main_path=main_res, parity=parity,
+                  lis_filter=lis_rows, poa_align=poa_rows,
+                  main_path=main_res, correct_path=correct_res,
+                  parity=parity,
                   total_s=time.perf_counter() - t_start, **kernels_line)
     with open(os.path.join(WORK, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1)

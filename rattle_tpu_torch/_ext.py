@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rattle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("bv_common", "lis_filter")
+KERNELS = ("bv_common", "lis_filter", "poa_align")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +33,8 @@ _SIGNATURES = {
     "bv_common": ("bv_common_launch", [_P, _P, _P, _I, _I, _P]),
     "lis_filter": ("lis_filter_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "poa_align": ("poa_align_launch",
+                  [_P] * 7 + [_I] * 7 + [_P] * 7),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

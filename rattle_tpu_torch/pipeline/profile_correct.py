@@ -1,0 +1,90 @@
+"""Where the time of ``correct`` goes on the card.
+
+    python -m rattle_tpu_torch.pipeline.profile_correct
+
+Clusters chip_smoke.py's main-path input (utils/synth.py MAIN_READS,
+MAIN_FAMILIES, MAIN_SEED) through the CLI on cuda, then runs ``correct`` on
+it twice: once plain, for the wall time and the pack engine's own section
+times, then once under torch.profiler (CPU + CUDA activities) for the device
+busy time, the idle share (1 - busy / wall of the profiled run) and the top
+operators by device and by host time.  The last line is one JSON object with
+these numbers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+from ..correct import runner
+from ..ops import kernels
+from ..utils.synth import (MAIN_FAMILIES, MAIN_READS, MAIN_SEED,
+                           synthetic_reads, write_fastq)
+from . import cli
+from .profile_cluster import _device_us
+
+
+def _run(argv) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_correct needs a CUDA card", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        fq = os.path.join(tmp, "reads.fq")
+        write_fastq(synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED), fq)
+        _run(["cluster", "-i", fq, "-o", tmp, "--rna"])
+        correct = ["correct", "-i", fq, "-c",
+                   os.path.join(tmp, "clusters.out"), "-o", tmp]
+        kernels.reset_launches()
+        wall = _run(correct)
+        stats = dict(runner.LAST_STATS)
+        launches = kernels.launches()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_prof = _run(correct)
+    cuda_events = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in cuda_events) / 1e6
+    avgs = prof.key_averages()
+    by_dev = sorted(avgs, key=_device_us, reverse=True)[:12]
+    by_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
+                    reverse=True)[:12]
+    print(f"{torch.cuda.get_device_name(0)}: {MAIN_READS} reads, correct "
+          f"{wall:.3f} s unprofiled, {wall_prof:.3f} s profiled; device busy "
+          f"{busy_s:.3f} s ({len(cuda_events)} device events), idle share "
+          f"{1 - busy_s / wall_prof:.3f}")
+    print(f"pack engine: {stats}")
+    print("top device time (self, ms / calls):")
+    for a in by_dev:
+        print(f"  {_device_us(a) / 1e3:10.1f} {a.count:8d}  {a.key[:70]}")
+    print("top host time (self, ms / calls):")
+    for a in by_cpu:
+        print(f"  {a.self_cpu_time_total / 1e3:10.1f} {a.count:8d}  "
+              f"{a.key[:70]}")
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
+        "wall_s": wall, "wall_profiled_s": wall_prof, "device_busy_s": busy_s,
+        "idle_share": 1 - busy_s / wall_prof, "engine": stats,
+        "launches": launches}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

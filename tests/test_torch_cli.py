@@ -82,6 +82,9 @@ def test_port_imports_neither_jax_nor_rattle_tpu():
         "for m in pkgutil.walk_packages(rattle_tpu_torch.__path__,\n"
         "                               'rattle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('correct.pack_engine', 'correct.runner', 'correct.polish',\n"
+        "          'ops.poa'):\n"
+        "    assert 'rattle_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or\n"
         "             n.startswith(('jax.', 'rattle_tpu.')) or\n"
         "             n == 'rattle_tpu')\n"
@@ -98,6 +101,12 @@ def test_port_sources_import_neither_jax_nor_rattle_tpu():
     for d, _dirs, files in os.walk(os.path.join(ROOT, "rattle_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     assert len(paths) > 20
+    scanned = {os.path.relpath(p, ROOT) for p in paths}
+    for mod in ("ops/poa.py", "ops/kernels.py", "correct/consensus.py",
+                "correct/driver.py", "correct/polish.py",
+                "correct/pack_engine.py", "correct/runner.py",
+                "pipeline/cli.py"):
+        assert os.path.join("rattle_tpu_torch", mod) in scanned
     for path in paths:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
