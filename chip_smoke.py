@@ -6,14 +6,21 @@ Run from the repository root on a machine with a card:
 
 Phases, each ending in one summary line:
   1. device and build: the card's name and power limit; the three CUDA
-     kernels compiled with nvcc from rattle_tpu_torch/csrc (all at once);
+     kernels and the tensor-core rate probe (csrc/mma_rate.cu) compiled with
+     nvcc from rattle_tpu_torch/csrc (all at once);
   2. bv_common against its plain version, exactly, at the main path's
-     shapes, with CUDA-event times and the bf16 matmul yardstick;
+     shapes and at ragged sizes off the 128 x 128 block tile, with
+     CUDA-event times, the bf16 matmul yardstick and the share of the bound,
+     whose 1-bit rate is the int8 peak scaled by the b1 / s8 ratio of
+     register-only mma.sync loops timed in this run;
   3. lis_filter against its plain version at M in {128, 512, 2048};
   4. poa_align against its plain version, exactly (best score, move count
      and the packed moves), on read steps captured from pack groups at
      W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
-     and a lane whose read is unrelated to its graph;
+     and a lane whose read is unrelated to its graph, with the time a rank
+     and the DP / traceback split of the slowest lane (the kernel's
+     nanosecond stamps); and on the adversarial graphs of
+     rattle_tpu_torch/utils/synth.poa_cases at W = 1024 and 4096;
   5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) on 8,192 reads; in each
@@ -59,7 +66,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 ops/s on the
 # tensor cores, and int32 ops/s outside them (half the 67 TFLOP/s float32
-# rate: an SM has 64 int32 lanes to its 128 float32 lanes)
+# rate: an SM has 64 int32 lanes to its 128 float32 lanes).  No 1-bit rate
+# is published; phase 2 derives one (_b1_peak).
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_INT32 = 33.5e12
@@ -109,7 +117,7 @@ def phase_device():
     check(smi, "nvidia-smi printed nothing")
     from rattle_tpu_torch import _ext
     t0 = time.perf_counter()
-    report = _ext.build(_ext.KERNELS)
+    report = _ext.build(_ext.KERNELS + _ext.PROBES)
     build_s = time.perf_counter() - t0
     for name in _ext.KERNELS:
         _ext.load(name)
@@ -128,12 +136,42 @@ def _random_words(p: int, density: float, dev, seed: int) -> torch.Tensor:
     return pack_bits(plane.to(torch.uint8))
 
 
+BV_RAGGED = ((1000, 777), (1, 129), (15, 1), (129, 15), (1, 1))
+MMA_CHAINS = 8          # accumulator chains a warp in csrc/mma_rate.cu
+
+
+def _b1_peak(dev):
+    """ops/s a bound on 1-bit MMAs assumes: the published int8 peak times
+    the ratio of the rates at which register-only loops of mma.sync .b1
+    (m16n8k256) and .s8 (m16n8k32) run on every SM of this card, at least
+    the int8 peak.  Returns (peak, {"b1": ops/s, "s8": ops/s})."""
+    from rattle_tpu_torch import _ext
+    from rattle_tpu_torch.ops.kernels import _raise_on, _stream
+    fn = _ext.load("mma_rate").mma_rate_launch
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    rates = {}
+    for kind, name, k, iters in ((0, "b1", 256, 64), (1, "s8", 32, 512)):
+        ms = time_ms(lambda: _raise_on(fn(kind, iters, blocks, out.data_ptr(),
+                                          _stream(dev)), "mma_rate"), reps=5)
+        ops = blocks * 8 * iters * MMA_CHAINS * 2 * 16 * 8 * k
+        rates[name] = ops / ms * 1e3
+    return PEAK_INT8 * max(1.0, rates["b1"] / rates["s8"]), rates
+
+
 def phase_bv_common(dev):
+    """The kernel exactly against the plain version at the main path's
+    shapes and at sizes off the 128 x 128 block tile."""
     from rattle_tpu_torch.ops import kernels
+    peak_b1, mma = _b1_peak(dev)
+    print(f"  mma.sync from registers: b1 {mma['b1'] / 1e12:.1f}, s8 "
+          f"{mma['s8'] / 1e12:.1f} TOP/s; the bound's 1-bit rate "
+          f"{peak_b1 / 1e12:.1f} TOP/s (the int8 peak {PEAK_INT8 / 1e12:.0f} x"
+          f" max(1, b1 / s8))")
     rows = []
-    # a block wave, a sweep tile, and a ragged shape with zero rows; bit
-    # densities of 1,000-3,000 bp reads (~25-50% of the 4,096 6-mers)
-    for p, s in ((4096, 4096), (1024, 8192), (1000, 777)):
+    # a block wave, a sweep tile, then ragged shapes (zero rows in the first);
+    # bit densities of 1,000-3,000 bp reads (~25-50% of the 4,096 6-mers)
+    for p, s in ((4096, 4096), (1024, 8192), *BV_RAGGED):
         pool = _random_words(p, 0.35, dev, seed=p)
         seed = _random_words(s, 0.45, dev, seed=p + 1)
         if p == 1000:
@@ -145,6 +183,7 @@ def phase_bv_common(dev):
         check(err == 0, f"bv_common [{p}x{s}] differs from plain by {err}")
         if p == 1000:
             check(bool((got[-7:] == 0).all()), "zero rows not inert")
+        if (p, s) in BV_RAGGED:
             continue
         ms = time_ms(lambda: kernels.bv_common(pool, seed))
         plain_ms = time_ms(lambda: kernels.bv_common_plain(pool, seed), 5)
@@ -153,17 +192,20 @@ def phase_bv_common(dev):
         library_ms = time_ms(lambda: torch.matmul(a, b.T))
         nbytes = (p + s) * 512 + p * s * 4
         ops = 2 * p * s * 4096
-        bound = max(nbytes / PEAK_BYTES, ops / PEAK_INT8) * 1e3
+        bound = max(nbytes / PEAK_BYTES, ops / peak_b1) * 1e3
         row = dict(shape=[p, s], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound,
-                   bound_by="bytes" if nbytes / PEAK_BYTES > ops / PEAK_INT8
-                   else "operations", max_abs_err=err)
+                   bound_by="bytes" if nbytes / PEAK_BYTES > ops / peak_b1
+                   else "operations", bound_share=bound / ms,
+                   bound_ops_per_s=peak_b1, mma_sync_ops_per_s=mma,
+                   max_abs_err=err)
         rows.append(row)
         print(f"  bv_common [{p}x128]x[{s}x128]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bf16 matmul {library_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({row['bound_by']})")
+              f"{bound:.4f} ms ({row['bound_by']}), {100 * bound / ms:.1f}% "
+              f"of the bound, {library_ms / ms:.2f}x the matmul's speed")
     print("phase 2 bv_common: exact against the plain version at "
-          "[4096x4096], [1024x8192], ragged [1000x777]")
+          f"[4096x4096], [1024x8192] and ragged {[list(x) for x in BV_RAGGED]}")
     return rows
 
 
@@ -267,6 +309,38 @@ def _capture_step(dev, w: int, n_cap: int, ref_len: int, seed: int):
             torch.ones(POA_LANES, dtype=torch.int32, device=dev)]
 
 
+def _poa_adversarial(dev, w: int, n_cap: int):
+    """The adversarial graphs of utils/synth.poa_cases through the kernel
+    and the plain version at width ``w``: exact."""
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.utils import synth
+    cases = synth.poa_cases()
+    b = len(cases)
+    pred_rows = np.zeros((b, n_cap, kernels.POA_PMAX), np.int32)
+    npred = np.ones((b, n_cap), np.int32)
+    letters = np.zeros((b, n_cap), np.int32)
+    n_nodes, seq_len, active = (np.zeros(b, np.int32) for _ in range(3))
+    seq = np.zeros((b, w), np.uint8)
+    for li, (_name, g, read, act) in enumerate(cases):
+        pr, npr, let, rank_nodes = synth.rank_arrays(g, n_cap)
+        pred_rows[li], npred[li], letters[li] = pr, npr, let
+        n_nodes[li] = len(rank_nodes)
+        seq[li, :len(read)] = np.frombuffer(read.encode("ascii"), np.uint8)
+        seq_len[li], active[li] = len(read), act
+    args = [torch.from_numpy(x).to(dev) for x in
+            (pred_rows, npred, letters, n_nodes, seq, seq_len, active)]
+    got = kernels.poa_align(*args)
+    ref = kernels.poa_align_plain(*args)
+    torch.cuda.synchronize()
+    (packed, tlen, best), (r_packed, r_tlen, r_best) = got, ref
+    for li, (name, *_rest) in enumerate(cases):
+        cnt = int(r_tlen[li])
+        check(int(best[li]) == int(r_best[li]) and int(tlen[li]) == cnt
+              and torch.equal(packed[li, :cnt], r_packed[li, :cnt]),
+              f"poa_align W={w}: adversarial case {name} differs")
+    return {name: int(tlen[li]) for li, (name, *_r) in enumerate(cases)}
+
+
 def phase_poa(dev):
     from rattle_tpu_torch.correct.pack_engine import CONFIGS
     from rattle_tpu_torch.ops import kernels
@@ -287,7 +361,8 @@ def phase_poa(dev):
         b = args[2].shape[0]
         scratch = torch.empty(kernels.poa_scratch_elems(b, n_cap, w),
                               dtype=torch.int16, device=dev)
-        got = kernels.poa_align(*args, scratch=scratch)
+        stamps = torch.zeros((b, 3), dtype=torch.int64, device=dev)
+        got = kernels.poa_align(*args, scratch=scratch, stamps=stamps)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -325,22 +400,38 @@ def phase_poa(dev):
                       for li in live) + 12 * b + 4 * sum(counts) + 8 * b)
         ops = cells * POA_OPS_PER_CELL
         t_ops, t_bytes = ops / PEAK_INT32, nbytes / PEAK_BYTES
+        # the DP / traceback split of the lane that ended last
+        st = stamps.tolist()
+        slow = max(live, key=lambda li: st[li][2] - st[li][0])
+        dp_ms = (st[slow][1] - st[slow][0]) / 1e6
+        tb_ms = (st[slow][2] - st[slow][1]) / 1e6
+        max_ranks = max(nn[li] for li in live)
+        adv = _poa_adversarial(dev, w, n_cap) if w in (1024, 4096) else None
         row = dict(shape=[b, n_cap, w], ranks=nn, read_len=sl, moves=counts,
                    multi_pred_ranks=multi, cells=cells, ms=ms,
+                   us_per_rank=ms * 1e3 / max_ranks,
+                   dp_ms=dp_ms, traceback_ms=tb_ms,
+                   slowest_lane=dict(lane=slow, ranks=nn[slow],
+                                     moves=counts[slow]),
                    plain_ms=plain_ms, library_ms=None,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   max_abs_err=0)
-        rows.append(row)
+                   max_abs_err=0, adversarial_moves=adv)
         print(f"  poa_align W={w} N={n_cap} lanes={b}: ranks {nn}, read "
               f"lengths {sl}, moves {counts}, {multi} multi-predecessor "
-              f"ranks; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {cells} cells)")
+              f"ranks; kernel {ms:.3f} ms ({row['us_per_rank']:.3f} us a "
+              f"rank over {max_ranks} ranks; slowest lane {slow}: DP "
+              f"{dp_ms:.3f} ms, traceback {tb_ms:.3f} ms for {counts[slow]} "
+              f"moves), plain {plain_ms:.1f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {cells} cells)"
+              + (f"; adversarial cases exact, moves {adv}" if adv else ""))
+        rows.append(row)
         del scratch
     print("phase 4 poa_align: best, move count and packed moves exact "
           "against the plain version at W = 1024, 2048, 4096 (captured read "
           f"step {POA_CAPTURE_STEP}; empty-graph, inactive and "
-          "unrelated-read lanes)")
+          "unrelated-read lanes) and on the adversarial graphs at W = 1024 "
+          "and 4096")
     return rows
 
 

@@ -24,6 +24,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rattle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("bv_common", "lis_filter", "poa_align")
+# csrc/mma_rate.cu, a probe of the tensor cores' rate that chip_smoke.py
+# builds beside the kernels (no path launches it)
+PROBES = ("mma_rate",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +37,8 @@ _SIGNATURES = {
     "lis_filter": ("lis_filter_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "poa_align": ("poa_align_launch",
-                  [_P] * 7 + [_I] * 7 + [_P] * 7),
+                  [_P] * 7 + [_I] * 7 + [_P] * 8),
+    "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

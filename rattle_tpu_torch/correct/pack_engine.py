@@ -63,8 +63,9 @@ MAX_READS = 256            # reads per pack the device path takes
 # lane cap bounds the kernel's DP scratch, 6 bytes a cell (int16 H, F and
 # direction rows of [n_cap + 1, w]): 25 MB, 101 MB and 403 MB a lane, so
 # 6.4, 12.9 and 25.8 GB at the caps, beside at most 0.6 GB of graph state;
-# the scratch is one buffer reused by every group.  A lane is one thread
-# block, so lanes beyond the card's 132 SMs queue up but cost nothing else.
+# the scratch is one buffer reused by every group.  A lane is a cluster of 4
+# or 8 small CTAs (csrc/poa_align.cu), so lanes beyond what the card's 132 SMs
+# hold at once queue up but cost nothing else.
 CONFIGS = ((1024, 4096, 256), (2048, 8192, 128), (4096, 16384, 64))
 
 # per-node arrays that take scatters: one spare slot on the node axis
@@ -135,11 +136,11 @@ def _init_state(seqs: torch.Tensor, lens: torch.Tensor,
 
 
 def pack_state_from_numpy(state: Dict[str, np.ndarray],
-                          device="cpu") -> dict:
+                          device="cuda") -> dict:
     """The JAX engine's state dictionary (the arrays of its ``_init_state``,
     as numpy) as this engine's: same values, the scatter targets padded by
     their spare slot, sequences as uint8."""
-    dev = torch.device(device)
+    dev = resolve(device)
     out = {}
     for name, arr in state.items():
         arr = np.asarray(arr)

@@ -89,8 +89,8 @@ def bv_common(pool: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     if not _on_card(pool):
         return bv_common_plain(pool, seed)
     if pool.data_ptr() % 16 or seed.data_ptr() % 16:
-        raise ValueError("bv_common: rows must be 16-byte aligned (uint4 "
-                         "loads)")
+        raise ValueError("bv_common: rows must be 16-byte aligned (cp.async "
+                         "of 16-byte units)")
     p, s = pool.shape[0], seed.shape[0]
     out = torch.empty((p, s), dtype=torch.int32, device=dev)
     if p == 0 or s == 0:
@@ -314,7 +314,8 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
               letters: torch.Tensor, n_nodes: torch.Tensor,
               seq: torch.Tensor, seq_len: torch.Tensor, active: torch.Tensor,
               match: int = 5, mismatch: int = -4, go: int = -8, ge: int = -6,
-              scratch: Optional[torch.Tensor] = None
+              scratch: Optional[torch.Tensor] = None,
+              stamps: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Local affine-gap alignment of one read per lane against its graph in
     topological-rank order (the semantics of ops/poa.py::align_local).
@@ -333,7 +334,12 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
 
     ``scratch``: optional 1-d int16 tensor on the same device with at least
     ``poa_scratch_elems(B, N, W)`` elements, reused across calls; the kernel
-    keeps its H, F and direction rows there."""
+    keeps its H, F and direction rows there.
+
+    ``stamps``: on the card only, an optional int64 [B, 3] tensor that takes
+    each lane's start, end of the DP rows and end of the traceback on the
+    card's nanosecond timer: chip_smoke.py's probe of the DP / traceback
+    split; the port's own calls pass none."""
     dev = letters.device
     _check("poa_align letters", letters, torch.int32, 2, dev)
     b, n = letters.shape
@@ -366,6 +372,10 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
     best = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return packed, tlen, best
+    if stamps is not None:
+        _check("poa_align stamps", stamps, torch.int64, 2, dev, 3)
+        if stamps.shape[0] != b:
+            raise ValueError("poa_align: stamps must be [B, 3]")
     plane = 2 * b * (n + 1) * w               # bytes of one int16 plane
     base = scratch.data_ptr()
     fn = _ext.load("poa_align").poa_align_launch
@@ -373,8 +383,9 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
                  n_nodes.data_ptr(), seq.data_ptr(), seq_len.data_ptr(),
                  active.data_ptr(), b, n, w, match, mismatch, go, ge,
                  base, base + plane, base + 2 * plane, packed.data_ptr(),
-                 tlen.data_ptr(), best.data_ptr(), _stream(dev)),
-              "poa_align")
+                 tlen.data_ptr(), best.data_ptr(),
+                 None if stamps is None else stamps.data_ptr(),
+                 _stream(dev)), "poa_align")
     poa_align.launches += 1
     return packed, tlen, best
 

@@ -1,6 +1,6 @@
 """Where the time of ``correct`` goes on the card.
 
-    python -m rattle_tpu_torch.pipeline.profile_correct
+    python -m rattle_tpu_torch.pipeline.profile_correct [--wall-only]
 
 Clusters chip_smoke.py's main-path input (utils/synth.py MAIN_READS,
 MAIN_FAMILIES, MAIN_SEED) through the CLI on cuda, then runs ``correct`` on
@@ -8,7 +8,11 @@ it twice: once plain, for the wall time and the pack engine's own section
 times, then once under torch.profiler (CPU + CUDA activities) for the device
 busy time, the idle share (1 - busy / wall of the profiled run) and the top
 operators by device and by host time.  The last line is one JSON object with
-these numbers.
+these numbers.  ``--wall-only`` stops after the plain run.
+
+The imports are absolute, so the script also times another checkout of the
+package: ``PYTHONPATH=<checkout> python <this file> --wall-only`` run from
+that checkout (two commits compared in one call on one card).
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ import time
 
 import torch
 
-from ..correct import runner
-from ..ops import kernels
-from ..utils.synth import (MAIN_FAMILIES, MAIN_READS, MAIN_SEED,
-                           synthetic_reads, write_fastq)
-from . import cli
-from .profile_cluster import _device_us
+from rattle_tpu_torch.correct import runner
+from rattle_tpu_torch.ops import kernels
+from rattle_tpu_torch.pipeline import cli
+from rattle_tpu_torch.pipeline.profile_cluster import _device_us
+from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
+                                          MAIN_SEED, synthetic_reads,
+                                          write_fastq)
 
 
 def _run(argv) -> float:
@@ -52,9 +57,17 @@ def main() -> int:
         correct = ["correct", "-i", fq, "-c",
                    os.path.join(tmp, "clusters.out"), "-o", tmp]
         kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         wall = _run(correct)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         stats = dict(runner.LAST_STATS)
         launches = kernels.launches()
+        if "--wall-only" in sys.argv[1:]:
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
+                "wall_s": wall, "peak_mem_gib": peak_gib, "engine": stats,
+                "launches": launches}))
+            return 0
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:

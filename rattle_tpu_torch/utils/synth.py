@@ -61,3 +61,135 @@ def write_fastq(reads, path: str) -> None:
     with open(path, "w") as fh:
         for name, seq, _f in reads:
             fh.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+# --------------------------------------------------------------------------
+# POA graphs that stress the alignment kernel, plus the read aligned to each
+# --------------------------------------------------------------------------
+
+POA_CASES = ("long_insertion_skip", "long_insertion_take", "many_preds",
+             "tied_preds", "long_chain", "short_read", "empty_graph",
+             "inactive")
+
+
+def _chain(g, letters: str, start: int = -1) -> List[int]:
+    """Append a chain of new nodes (each its own group, in order) after node
+    ``start`` (none if -1); returns the node ids."""
+    ids = []
+    prev = start
+    for ch in letters:
+        nid = g.add_node(ch)
+        g.grp_order.append(nid)
+        if prev >= 0:
+            g.add_edge(prev, nid)
+        ids.append(nid)
+        prev = nid
+    return ids
+
+
+def _graph_with_branches(poa_mod, trunk: str, at: int, branches: List[str]):
+    """A chain ``trunk`` whose node ``at`` gets, besides its trunk
+    predecessor (edge 0), one predecessor for each branch: a chain of new
+    nodes from node ``at - 1``.  Rank order: trunk[:at], the branches, the
+    rest of the trunk."""
+    g = poa_mod.POAGraph()
+    head = _chain(g, trunk[:at])
+    ends = [_chain(g, b, head[-1])[-1] for b in branches]
+    tail = _chain(g, trunk[at:], head[-1])
+    for e in ends:
+        g.add_edge(e, tail[0])
+    return g
+
+
+def poa_cases(poa_mod=None, seed: int = 4096):
+    """[(name, graph, read, active)] in ``POA_CASES`` order, for a read step
+    of width 1024 or more.  ``poa_mod`` is the POA module whose graphs are
+    built (``ops/poa.py`` by default; a test passes the reference's, which
+    has the same classes); every graph is the same for the same seed.
+
+    * long_insertion_*: a graph grown from a 300-base transcript and a read
+      of it with 48 inserted bases, so the node after the insertion joins a
+      predecessor 49 ranks back (beyond any shared-memory ring of rows) with
+      one just before it; the read skips or takes the insertion;
+    * many_preds: one node with 16 predecessors, 15 of them ends of short
+      branches ranked just before it (still in flight) and its trunk
+      predecessor ~30 ranks back; the read takes the 8th branch;
+    * tied_preds: a two-node bubble whose letters both differ from the
+      read's base there, so two predecessors score the same (edge order
+      decides) ;
+    * long_chain: a 400-node chain and a noisy read of it;
+    * short_read: a 20-base read against a grown 300-node graph (one tile of
+      a wide step);
+    * empty_graph, inactive: lanes that must give no moves and best 0.
+    """
+    if poa_mod is None:
+        from ..ops import poa as poa_mod
+    rng = np.random.default_rng(seed)
+
+    def rand(nb: int) -> str:
+        return rng.choice(_BASES, nb).tobytes().decode("ascii")
+
+    def noisy(s: str, err: float) -> str:
+        arr = np.frombuffer(s.encode("ascii"), np.uint8)
+        return mutate(rng, arr, err).tobytes().decode("ascii")
+
+    def grow(reads):
+        g = poa_mod.POAGraph()
+        p = poa_mod.POAParams()
+        for s in reads:
+            poa_mod.add_alignment(g, poa_mod.align_local(g, s, p), s)
+        return g
+
+    ref = rand(300)
+    ins = ref[:150] + rand(48) + ref[150:]
+    grown = grow([ref, ins, noisy(ref, 0.04)])
+
+    trunk = rand(120)
+    branches = [rand(1 + i % 3) for i in range(15)]
+    many = _graph_with_branches(poa_mod, trunk, 60, branches)
+    many_read = noisy(trunk[:60], 0.03) + branches[7] + noisy(trunk[60:], 0.03)
+
+    bubble = rand(80)
+    z = bubble[40]
+    x, y = [c for c in "ACGT" if c != z][:2]
+    tied = _graph_with_branches(poa_mod, bubble[:40] + x + bubble[41:], 41,
+                                [y])
+
+    chain = rand(400)
+    cases = {
+        "long_insertion_skip": (grown, noisy(ref, 0.03), 1),
+        "long_insertion_take": (grown, noisy(ins, 0.03), 1),
+        "many_preds": (many, many_read, 1),
+        "tied_preds": (tied, bubble, 1),
+        "long_chain": (_graph_with_branches(poa_mod, chain, 1, []),
+                       noisy(chain, 0.06), 1),
+        "short_read": (grown, ref[200:220], 1),
+        "empty_graph": (poa_mod.POAGraph(), noisy(ref, 0.03), 1),
+        "inactive": (grown, noisy(ref, 0.03), 0),
+    }
+    return [(name, *cases[name]) for name in POA_CASES]
+
+
+def rank_arrays(graph, n: int):
+    """The rank-space arrays of ``poa_align`` for one lane, as int32 numpy:
+    (pred_rows [n, 16], npred [n], letters [n]), and the node id at each
+    rank.  Ranks follow ``graph.topo_groups()``; predecessor k of a rank is
+    its k-th in-edge as a DP row (the predecessor's rank + 1; 0, the virtual
+    start row, for a rank without predecessors)."""
+    _, order = graph.topo_groups()
+    rank_nodes = [nid for members in order for nid in members]
+    if len(rank_nodes) > n:
+        raise ValueError(f"graph of {len(rank_nodes)} nodes over N={n}")
+    rank_of = {nid: r for r, nid in enumerate(rank_nodes)}
+    pred_rows = np.zeros((n, 16), np.int32)
+    npred = np.ones(n, np.int32)
+    letters = np.zeros(n, np.int32)
+    for r, nid in enumerate(rank_nodes):
+        ins = graph.in_edges[nid]
+        if len(ins) > 16:
+            raise ValueError(f"node {nid} has {len(ins)} predecessors")
+        letters[r] = ord(graph.letters[nid])
+        npred[r] = max(len(ins), 1)
+        for k, a in enumerate(ins):
+            pred_rows[r, k] = rank_of[a] + 1
+    return pred_rows, npred, letters, rank_nodes

@@ -46,12 +46,28 @@ def test_bv_common_plain_matches_pallas(p, s, density):
 
 
 def test_bv_common_ragged_shapes():
-    """No padding contract on the port: any row counts."""
+    """No padding contract on the port: any row counts.  Sizes off the CUDA
+    kernel's 128 x 128 block tile on either side (chip_smoke.py holds the
+    kernel to the same) against the Pallas kernel, whose operands are padded
+    with inert zero rows to its tiling."""
     rng = np.random.default_rng(9)
     pool, seed = _words(rng, 37), _words(rng, 5, 0.5)
     got = kernels.bv_common(torch.from_numpy(pool.view(np.int32)),
                             torch.from_numpy(seed.view(np.int32)))
     np.testing.assert_array_equal(got.numpy(), _popcount_ref(pool, seed))
+    for p, s in ((1, 1), (15, 129), (129, 15), (200, 131)):
+        pool, seed = _words(rng, p, 0.6), _words(rng, s)
+        pool_pad = np.zeros((-(-p // POOL_TILE) * POOL_TILE, 128), np.uint32)
+        seed_pad = np.zeros((-(-s // 8) * 8, 128), np.uint32)
+        pool_pad[:p], seed_pad[:s] = pool, seed
+        ref = np.asarray(bv_common_matmul(jnp.asarray(pool_pad),
+                                          jnp.asarray(seed_pad),
+                                          interpret=True))[:p, :s]
+        got = kernels.bv_common(torch.from_numpy(pool.view(np.int32)),
+                                torch.from_numpy(seed.view(np.int32)))
+        assert got.shape == (p, s)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        np.testing.assert_array_equal(got.numpy(), _popcount_ref(pool, seed))
 
 
 def _match_lists(rng, b, m):

@@ -171,7 +171,8 @@ def stepped():
     st = jax_pe._step(st, jnp.int32(2), w_eff=w, match=5, mismatch=-4,
                       go=-8, ge=-6)
     after = {k: np.asarray(v) for k, v in st.items()}
-    port = pe._step(pe.pack_state_from_numpy(before), 2, w_eff=w)
+    port = pe._step(pe.pack_state_from_numpy(before, device="cpu"), 2,
+                   w_eff=w)
     return dict(after=after, port=port, n_cap=n_cap, tot_cap=tot_cap)
 
 
@@ -210,7 +211,7 @@ def test_pack_state_from_numpy_pads_scatter_targets():
                  node_rank=np.zeros((2, 8), np.int32),
                  seqs=np.full((2, 3, 128), 65, np.int8),
                  n_nodes=np.zeros(2, np.int32))
-    st = pe.pack_state_from_numpy(state)
+    st = pe.pack_state_from_numpy(state, device="cpu")
     assert st["letters"].shape == (2, 9) and int(st["letters"][0, 8]) == 0
     assert st["preds"].shape == (2, 9, 16) and int(st["preds"][1, 8, 0]) == -1
     assert st["node_rank"].shape == (2, 8)

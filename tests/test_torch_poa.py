@@ -2,9 +2,11 @@
 ``poa_align``) vs the Pallas kernel in interpret mode and vs the executable
 spec ``ops/poa.align_local``.
 
-All integers: tolerance 0.  One batch of 8 lanes at W = 1024, N = 4096 (the
-pack engine's smallest config) holds every case, so the JAX side compiles and
-runs once per module.
+All integers: tolerance 0.  One batch at W = 1024, N = 4096 (the pack
+engine's smallest config) holds every case, so the JAX side compiles and runs
+once per module: the cases below and the adversarial graphs of
+``rattle_tpu_torch.utils.synth.poa_cases`` (built for the JAX side with its
+own ``ops/poa``), which chip_smoke.py also runs through the CUDA kernel.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from rattle_tpu.ops import poa as jax_poa
 from rattle_tpu.ops.poa_pallas import META_W, PMAX, poa_align_pallas
 from rattle_tpu_torch.ops import kernels
 from rattle_tpu_torch.ops import poa as port_poa
+from rattle_tpu_torch.utils import synth
 from tests.conftest import make_read, mutate
 
 # The suite runs in several worker processes; with torch's default intra-op
@@ -25,8 +28,14 @@ from tests.conftest import make_read, mutate
 torch.set_num_threads(1)
 
 W, N = 1024, 4096
+# one adversarial graph per property it stresses (the module's own cases
+# already hold empty-graph and inactive lanes; chip_smoke.py runs all of
+# synth.POA_CASES through the CUDA kernel)
+ADVERSARIAL = ("long_insertion_skip", "many_preds", "tied_preds",
+               "long_chain", "short_read")
 CASES = ("multi_pred", "multi_pred_long", "empty_graph", "inactive",
-         "unrelated", "nothing_aligns", "identical", "single_read_graph")
+         "unrelated", "nothing_aligns", "identical", "single_read_graph",
+         *(f"adv_{c}" for c in ADVERSARIAL))
 
 
 def _grow(reads):
@@ -58,6 +67,9 @@ def _lanes():
         "identical": (_grow([ref, ref]), ref, 1),
         "single_read_graph": (_grow([ref2]), mutate(rng, ref2, 0.15), 1),
     }
+    for name, g, read, act in synth.poa_cases(jax_poa):
+        if name in ADVERSARIAL:
+            lanes[f"adv_{name}"] = (g, read, act)
     return [lanes[c] for c in CASES]
 
 
@@ -156,6 +168,37 @@ def test_plain_equals_align_local(batch, li):
         assert cnt == 0
     if CASES[li] in ("multi_pred", "identical", "multi_pred_long"):
         assert cnt > 30
+
+
+def test_adversarial_cases(batch):
+    """The port builds the same adversarial graphs and rank-space arrays as
+    the batch's (which come from the reference's graphs), and each graph
+    stresses what it is named for."""
+    pred_rows, npred, letters = (x.numpy() for x in batch["args"][:3])
+    n_nodes = batch["args"][3].numpy()
+    for name, g, read, act in synth.poa_cases():
+        if name not in ADVERSARIAL:
+            continue
+        li = CASES.index(f"adv_{name}")
+        pr, npr, let, _ = synth.rank_arrays(g, N)
+        assert np.array_equal(pr, pred_rows[li]), name
+        assert np.array_equal(npr, npred[li]), name
+        assert np.array_equal(let, letters[li]), name
+        assert read == batch["lanes"][li][1] and act == batch["lanes"][li][2]
+
+    def lane(name):
+        li = CASES.index(f"adv_{name}")
+        n = int(n_nodes[li])
+        back = [r + 1 - pred_rows[li, r, k] for r in range(n)
+                for k in range(npred[li, r]) if pred_rows[li, r, k] > 0]
+        return li, n, max(back, default=0)
+
+    assert lane("long_insertion_skip")[2] > 40      # beyond any row ring
+    li, n, back = lane("many_preds")
+    assert npred[li, :n].max() == kernels.POA_PMAX and back > 16
+    li, n, _ = lane("long_chain")
+    assert n == 400 and npred[li, :n].max() == 1
+    assert int(batch["args"][5][CASES.index("adv_short_read")]) == 20
 
 
 def test_port_poa_copy_matches_source():
