@@ -13,7 +13,14 @@ Phases, each ending in one summary line:
      CUDA-event times, the bf16 matmul yardstick and the share of the bound,
      whose 1-bit rate is the int8 peak scaled by the b1 / s8 ratio of
      register-only mma.sync loops timed in this run;
-  3. lis_filter against its plain version at M in {128, 512, 2048};
+  3. lis_filter against its plain version (bases, hc and n_dist exactly,
+     var to rtol 1e-5 with the same infinities): on synthetic lists at the
+     three tiers' chunk shapes and on the largest chunk of each tier that the
+     main path's first decision wave hands it (timed as lone calls, with the
+     share of the bound; the wave runs under torch.profiler, which splits
+     lis_filter's launches and device time by tier and by (M, B, bound
+     bucket)), on the adversarial lists of
+     rattle_tpu_torch/utils/synth.lis_cases and at ragged B (1, 33, 4097);
   4. poa_align against its plain version, exactly (best score, move count
      and the packed moves), on read steps captured from pack groups at
      W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
@@ -25,12 +32,15 @@ Phases, each ending in one summary line:
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) on 8,192 reads; in each
      run every read must land in one cluster and both cluster kernels must
-     have run;
+     have run, and lis_filter's launches are split by (tier M, chunk B)
+     (``kernels.lis_filter.shapes``);
   6. the correct path: ``correct`` on the ``--rna`` run's reads and
      clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
      three widths), then ``polish --rna --summary`` on its consensi.fq;
   7. parity on 256 reads of the same generator: ``cluster`` (rna, cDNA) and
-     ``cluster --iso`` must write the same clusters.out as ``--oracle``;
+     ``cluster --iso`` must write the same clusters.out as ``--oracle``, and
+     so must ``cluster --rna`` with every borderline pair, then every pair
+     over 128 matches, rescored on the host in f64;
      ``correct`` on cuda the same three files as ``--poa-backend host``
      with no pack on the host aligner; ``polish`` on cuda the same
      transcriptome.fq as ``polish --oracle --poa-backend host``.
@@ -210,63 +220,125 @@ def phase_bv_common(dev):
 
 
 def _match_lists(b: int, m: int, dev, seed: int):
-    """Join-shaped lists: counts spread up to m, mostly colinear matches
-    (a long LIS with gaps, as real read pairs give), sorted by (p1, p2)."""
-    g = np.random.default_rng(seed)
-    n_valid = g.integers(m // 4, m + 1, size=b)
-    p1 = np.sort(g.integers(0, 8 * m, (b, m)), axis=1)
-    p2 = np.where(g.random((b, m)) < 0.8, p1 + g.integers(-6, 7, (b, m)),
-                  g.integers(0, 8 * m, (b, m)))
-    order = np.lexsort((p2, p1), axis=1)
-    p1 = np.take_along_axis(p1, order, axis=1)
-    p2 = np.take_along_axis(p2, order, axis=1)
-    valid = np.arange(m)[None, :] < n_valid[:, None]
-    p1 = np.where(valid, p1, 0).astype(np.int32)
-    p2 = np.where(valid, p2, 2**31 - 1).astype(np.int32)
+    """utils/synth.match_lists on the card, with the batch's largest count
+    as the bound (the engine's own bound)."""
+    from rattle_tpu_torch.utils.synth import match_lists
+    p1, p2, valid, n_valid = match_lists(np.random.default_rng(seed), b, m)
     t = [torch.from_numpy(x).to(dev) for x in (p1, p2, valid)]
     bound = torch.tensor([int(n_valid.max())], dtype=torch.int32, device=dev)
     return t, bound
 
 
-def phase_lis(dev):
-    from rattle_tpu_torch.cluster.bulk import SCORE_CHUNKS
+def _capture_lists(dev):
+    """The largest chunk of each tier that the main path's first decision
+    wave hands lis_filter: the engine on utils/synth's main-path reads in
+    the CLI's order (stable length sort), ``cluster --rna`` parameters, one
+    block wave, run under the profiler, whose split of lis_filter's launches
+    and device time by tier and by (M, B, bound bucket) it prints.  Returns
+    {M: [p1, p2, valid, bound]}."""
+    from rattle_tpu_torch.cluster.bulk import BulkClusterEngine
+    from rattle_tpu_torch.config import ClusterParams
+    from rattle_tpu_torch.pipeline.profile_cluster import (lis_split,
+                                                           print_split)
+    from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
+                                              MAIN_SEED, synthetic_reads)
+    reads = synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED)
+    seqs = sorted((s for _n, s, _f in reads), key=len, reverse=True)
+    params = ClusterParams(is_rna=True)
+    eng = BulkClusterEngine(seqs, params, device=dev)
+    ids = np.arange(eng.k_block)
+    split, _prof, kept = lis_split(
+        lambda: eng._wave(ids, ids, params.bv_threshold, ordered=True),
+        keep=True)
+    print_split("first wave (profiled)", split)
+    return kept
+
+
+def _lis_check(what: str, args, bound) -> float:
+    """The kernel against the plain version on one batch: bases, hc and
+    n_dist exact, var with the same inf pattern and within rtol 1e-5.
+    Returns var's largest absolute difference over the finite values."""
+    from rattle_tpu_torch.ops import kernels
+    got = kernels.lis_filter(*args, 10, 10, bound)
+    ref = kernels.lis_filter_plain(*args, 10, 10, bound)
+    torch.cuda.synchronize()
+    for name, g_, r_ in zip(("bases", "hc", "n_dist"), got, ref):
+        check(torch.equal(g_, r_), f"lis_filter {what}: {name} differs")
+    finite = torch.isfinite(ref[3])
+    check(torch.equal(torch.isfinite(got[3]), finite),
+          f"lis_filter {what}: var inf pattern differs")
+    check(torch.allclose(got[3][finite], ref[3][finite], rtol=1e-5,
+                         atol=1e-5), f"lis_filter {what}: var off")
+    if not bool(finite.any()):
+        return 0.0
+    return float((got[3][finite] - ref[3][finite]).abs().max())
+
+
+def _lis_row(what: str, args, bound) -> dict:
+    """Check, time and bound one batch: the kernel and the plain version
+    (lone calls, as the other kernels are timed: on lists this short the
+    wrapper's host path is part of a call's time), and the bytes the
+    function must move on these lists: valid up
+    to the bound (1 byte a slot), p2 at the valid slots and p1 at the LIS
+    anchors (4 bytes each), the bound itself and four [B] outputs."""
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.ops.lis_select import lis_build_select
+    p1, p2, valid = args
+    b, m = p1.shape
+    err = _lis_check(what, args, bound)
+    ms = time_ms(lambda: kernels.lis_filter(p1, p2, valid, 10, 10, bound))
+    plain_ms = time_ms(lambda: kernels.lis_filter_plain(
+        p1, p2, valid, 10, 10, bound), reps=2 if m >= 2048 else 3, warmup=1)
+    nb = int(bound)
+    lis_len = lis_build_select(p2[:, :nb], valid[:, :nb])[2]
+    nbytes = (b * nb + 4 * int(valid[:, :nb].sum())
+              + 4 * int(lis_len.sum()) + 4 + 16 * b)
+    row = dict(lists=what, shape=[b, m], bound=nb,
+               valid=int(valid[:, :nb].sum()), lis=int(lis_len.sum()), ms=ms,
+               plain_ms=plain_ms, library_ms=None,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               max_abs_err=err)
+    print(f"  lis_filter {what} B={b} M={m} bound={nb}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms (bytes), "
+          f"{100 * row['bound_ms'] / ms:.2f}% of the bound; "
+          f"{row['valid']} valid, LIS total {row['lis']}; var max abs err "
+          f"{err:.3g}")
+    return row
+
+
+LIS_RAGGED = ((1, 128), (33, 512), (4097, 128))
+LIS_ADVERSARIAL = ((256, 128), (64, 2048))
+
+
+def phase_lis(dev):
+    """The kernel against its plain version on synthetic lists at the three
+    tiers' chunk shapes, on the largest chunk of each tier that the main
+    path hands it, on the adversarial lists of utils/synth.lis_cases and at
+    ragged B."""
+    from rattle_tpu_torch.cluster.bulk import SCORE_CHUNKS
+    from rattle_tpu_torch.utils.synth import lis_cases
     rows = []
     for tier, m in enumerate((128, 512, 2048)):
         b = SCORE_CHUNKS[0][tier]
-        (p1, p2, valid), bound = _match_lists(b, m, dev, seed=m)
-        got = kernels.lis_filter(p1, p2, valid, 10, 10, bound)
-        ref = kernels.lis_filter_plain(p1, p2, valid, 10, 10, bound)
-        torch.cuda.synchronize()
-        for name, g_, r_ in zip(("bases", "hc", "n_dist"), got, ref):
-            check(torch.equal(g_, r_), f"lis_filter M={m}: {name} differs")
-        finite = torch.isfinite(ref[3])
-        check(torch.equal(torch.isfinite(got[3]), finite),
-              f"lis_filter M={m}: var inf pattern differs")
-        check(torch.allclose(got[3][finite], ref[3][finite], rtol=1e-5,
-                             atol=1e-5), f"lis_filter M={m}: var off")
-        err = float((got[3][finite] - ref[3][finite]).abs().max())
-        ms = time_ms(lambda: kernels.lis_filter(p1, p2, valid, 10, 10, bound))
-        plain_ms = time_ms(lambda: kernels.lis_filter_plain(
-            p1, p2, valid, 10, 10, bound), reps=2 if m == 2048 else 3,
-            warmup=1)
-        # bytes the function must move on these lists: valid up to the bound
-        # (1 byte a slot), p2 at the valid slots and p1 at the LIS anchors
-        # (4 bytes each), the bound itself and four [B] outputs
-        nb = int(bound)
-        lis_len = lis_build_select(p2[:, :nb], valid[:, :nb])[2]
-        nbytes = (b * nb + 4 * int(valid[:, :nb].sum())
-                  + 4 * int(lis_len.sum()) + 4 + 16 * b)
-        row = dict(shape=[b, m], bound=nb, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=nbytes / PEAK_BYTES * 1e3,
-                   bound_by="bytes", max_abs_err=err)
-        rows.append(row)
-        print(f"  lis_filter B={b} M={m} bound={int(bound)}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-              f"{row['bound_ms']:.5f} ms (bytes), var max abs err {err:.3g}")
+        args, bound = _match_lists(b, m, dev, seed=m)
+        rows.append(_lis_row("synthetic", args, bound))
+    for m, (p1, p2, valid, bound) in _capture_lists(dev).items():
+        rows.append(_lis_row("main path", [p1, p2, valid], bound))
+    names = []
+    for b, m in LIS_ADVERSARIAL:
+        for name, *arrs, bnd in lis_cases(b, m):
+            args = [torch.from_numpy(x).to(dev) for x in arrs]
+            bound = torch.tensor([bnd], dtype=torch.int32, device=dev)
+            _lis_check(f"{name} B={b} M={m}", args, bound)
+            names.append(name)
+    for b, m in LIS_RAGGED:
+        args, bound = _match_lists(b, m, dev, seed=b)
+        _lis_check(f"ragged B={b} M={m}", args, bound)
     print("phase 3 lis_filter: bases/hc/n_dist exact, var within rtol 1e-5, "
-          "at M = 128, 512, 2048")
+          "at M = 128, 512, 2048, on the main path's chunks "
+          f"(M = {[r['shape'][1] for r in rows[3:]]}), on the adversarial "
+          f"lists {sorted(set(names))} at (B, M) {list(LIS_ADVERSARIAL)} and "
+          f"at ragged (B, M) {list(LIS_RAGGED)}")
     return rows
 
 
@@ -471,6 +543,7 @@ def _main_run(label, reads, flags):
     """Cluster ``reads`` on cuda; every read must land in one cluster and
     both kernels must have launched in this run."""
     from rattle_tpu_torch.io import hpsio
+    from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.utils import metrics
     from rattle_tpu_torch.utils.synth import write_fastq
     fq = os.path.join(WORK, f"{label}.fq")
@@ -497,6 +570,8 @@ def _main_run(label, reads, flags):
                sections_s={k[8:]: v for k, v in st.items()
                            if k[8:] in ("gate", "score", "rescore", "replay")},
                host_rescores=_host_rescores(), launches=launches,
+               lis_shapes={f"M={m} B={b}": n for (m, b), n in
+                           sorted(kernels.lis_filter.shapes.items())},
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"  {label} ({' '.join(flags) or 'cDNA'}): {len(clusters)} clusters,"
           f" purity {res['purity']:.4f}; cluster {wall:.2f} s "
@@ -505,6 +580,7 @@ def _main_run(label, reads, flags):
           f"{ {k: round(v, 3) for k, v in res['sections_s'].items()} }), "
           f"{res['host_rescores']} host rescores, peak "
           f"{res['peak_mem_gib']:.2f} GiB, launches {launches}")
+    print(f"  {label} lis_filter launches by (M, B): {res['lis_shapes']}")
     return res, fq, os.path.join(out, "clusters.out")
 
 
@@ -701,6 +777,53 @@ def _capacity_fallback():
           "ran on the host aligner (fb_length 1) beside a device pack")
 
 
+@contextlib.contextmanager
+def _engine_constants(**values):
+    """Set module constants of cluster/bulk.py (read when an engine is
+    built) for the duration of the block."""
+    from rattle_tpu_torch.cluster import bulk
+    saved = {k: getattr(bulk, k) for k in values}
+    for k, v in values.items():
+        setattr(bulk, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(bulk, k, v)
+
+
+# each forces one of the engine's rare paths on every pair it concerns:
+# a variance band so wide that every score-passing pair is borderline, and
+# a one-tier M ladder, so every pair over 128 matches overflows
+FORCED_RESCORES = (("all_borderline", dict(VAR_BAND_REL=1e12)),
+                   ("overflow_m128", dict(M_LADDER=(128,))))
+
+
+def _forced_rescores(fq: str, oracle_out: str):
+    """``cluster --rna`` on cuda with a rare path forced: clusters.out byte
+    for byte the oracle's, host rescores > 0, lis_filter launched."""
+    with open(oracle_out, "rb") as fh:
+        want = fh.read()
+    res = {}
+    for label, consts in FORCED_RESCORES:
+        out = os.path.join(WORK, f"parity_rna_{label}")
+        os.makedirs(out)
+        with _engine_constants(**consts):
+            wall, launches = _counted(["cluster", "-i", fq, "-o", out,
+                                       "--rna"])
+        n_host = _host_rescores()
+        check(n_host > 0, f"parity {label}: no host rescore")
+        check(launches["lis_filter"] > 0, f"parity {label}: lis_filter "
+              f"never ran: {launches}")
+        with open(os.path.join(out, "clusters.out"), "rb") as fh:
+            check(fh.read() == want, f"parity {label}: clusters.out differs "
+                  "from --oracle")
+        res[label] = dict(s=wall, launches=launches, host_rescores=n_host)
+        print(f"  parity rna {label} ({consts}): byte-identical to --oracle "
+              f"({wall:.2f} s, {n_host} host rescores, launches {launches})")
+    return res
+
+
 def phase_parity():
     from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
                                               synthetic_reads, write_fastq)
@@ -733,16 +856,21 @@ def phase_parity():
         if label == "rna":
             rna_inputs = (fq, os.path.join(WORK, "parity_rna_cuda",
                                            "clusters.out"))
+            oracle_out = os.path.join(WORK, "parity_rna_oracle",
+                                      "clusters.out")
         print(f"  parity {label}: byte-identical to --oracle (cuda "
               f"{runs['cuda']['s']:.2f} s, launches "
               f"{runs['cuda']['launches']}, "
               f"{runs['cuda']['host_rescores']} host rescores; oracle "
               f"{runs['oracle']['s']:.2f} s)")
+    res["forced_rescores"] = _forced_rescores(rna_inputs[0], oracle_out)
     res["correct"] = _parity_correct(*rna_inputs)
     _capacity_fallback()
     print(f"phase 7 parity: cluster rna/cDNA and --iso on {N_PARITY} reads "
-          "match --oracle byte for byte; correct and polish match the host "
-          "path byte for byte with no pack on the host aligner")
+          "match --oracle byte for byte, and so does cluster --rna with "
+          "every borderline pair and every pair over 128 matches rescored "
+          "on the host; correct and polish match the host path byte for "
+          "byte with no pack on the host aligner")
     return res
 
 

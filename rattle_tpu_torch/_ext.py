@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bv_common": ("bv_common_launch", [_P, _P, _P, _I, _I, _P]),
     "lis_filter": ("lis_filter_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "poa_align": ("poa_align_launch",
                   [_P] * 7 + [_I] * 7 + [_P] * 8),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),

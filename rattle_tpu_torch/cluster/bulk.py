@@ -62,7 +62,7 @@ K_CLASSES: Tuple[int, ...] = (1024, 2048, 4096, 0)
 # their exact match count, > last tier -> exact f64 host scorer
 M_LADDER: Tuple[int, ...] = (128, 512, 2048)
 # pairs per chunk: COUNT_CHUNKS[cls], SCORE_CHUNKS[cls][tier] (bound the
-# [chunk, width] join tensors and the [6, M + 1, chunk] LIS scratch)
+# [chunk, width] join tensors and the [chunk, M] match lists)
 COUNT_CHUNKS: Tuple[int, ...] = (4096, 2048, 1024, 512)
 SCORE_CHUNKS: Tuple[Tuple[int, ...], ...] = ((4096, 2048, 512),
                                              (2048, 1024, 256),

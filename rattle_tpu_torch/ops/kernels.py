@@ -11,7 +11,8 @@ A wrapper launches its CUDA kernel for CUDA tensors (or raises) and takes the
 plain version only because its tensors lie on the CPU; there is no fallback
 from one to the other.  Each wrapper counts its kernel launches in a plain
 integer attribute (``bv_common.launches``, ``lis_filter.launches``,
-``poa_align.launches``) so a run can show that a path went through the kernel.
+``poa_align.launches``) so a run can show that a path went through the kernel;
+``lis_filter.shapes`` splits its count by (M, B).
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from .similarity import variance
 
 BV_WORDS = 128          # 4096-bit vectors, packed
 BV_BITS = BV_WORDS * 32
+# longest match list lis_filter takes: int16 match indices, and one pair's
+# state (16 bytes a slot) within a block's shared memory on the card
+LIS_MAX_M = 8192
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -135,8 +139,8 @@ def lis_filter(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor,
                bound: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, ...]:
     """Fused LIS + filter + variance for [B, M] match lists sorted by
-    (p1, p2): p1, p2 int32, valid bool.  Returns (bases, hc, n_dist [B]
-    int32, var [B] float32).
+    (p1, p2): p1, p2 int32, valid bool, M <= LIS_MAX_M.  Returns (bases,
+    hc, n_dist [B] int32, var [B] float32).
 
     ``bound``: optional int32 scalar tensor on the same device, the largest
     valid match count of the batch; all three scans stop there (exact when
@@ -148,6 +152,9 @@ def lis_filter(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor,
     _check("lis_filter valid", valid, torch.bool, 2, dev, p1.shape[1])
     if p2.shape[0] != p1.shape[0] or valid.shape[0] != p1.shape[0]:
         raise ValueError("lis_filter: p1, p2 and valid must share [B, M]")
+    if p1.shape[1] > LIS_MAX_M:
+        raise ValueError(f"lis_filter: M must be at most {LIS_MAX_M}, got "
+                         f"{p1.shape[1]}")
     if bound is not None:
         _check("lis_filter bound", bound.reshape(-1), torch.int32, 1, dev, 1)
     if not _on_card(p1):
@@ -162,18 +169,19 @@ def lis_filter(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor,
     var = torch.empty((b,), dtype=torch.float32, device=dev)
     if b == 0:
         return bases, hc, n_dist, var
-    scratch = torch.empty((6, m + 1, b), dtype=torch.int32, device=dev)
     fn = _ext.load("lis_filter").lis_filter_launch
     _raise_on(fn(p1.data_ptr(), p2.data_ptr(), valid.data_ptr(),
                  bound.data_ptr(), b, m, kmer_size, hc_max_dist,
-                 scratch.data_ptr(), bases.data_ptr(), hc.data_ptr(),
-                 n_dist.data_ptr(), var.data_ptr(), _stream(dev)),
-              "lis_filter")
+                 bases.data_ptr(), hc.data_ptr(), n_dist.data_ptr(),
+                 var.data_ptr(), _stream(dev)), "lis_filter")
     lis_filter.launches += 1
+    lis_filter.shapes[(m, b)] = lis_filter.shapes.get((m, b), 0) + 1
     return bases, hc, n_dist, var
 
 
 lis_filter.launches = 0
+# launches by (M, B): the split of lis_filter.launches over tiers and chunks
+lis_filter.shapes = {}
 
 
 # --------------------------------------------------------------------------
@@ -399,6 +407,7 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for fn in _KERNELS:
         fn.launches = 0
+    lis_filter.shapes.clear()
 
 
 def launches() -> dict:

@@ -1,13 +1,16 @@
 """Where the time of ``cluster`` goes on the card.
 
-    python -m rattle_tpu_torch.pipeline.profile_cluster
+    python -m rattle_tpu_torch.pipeline.profile_cluster [--cdna]
 
 Clusters chip_smoke.py's main-path input (utils/synth.py MAIN_READS,
-MAIN_FAMILIES, MAIN_SEED) through the CLI on cuda twice: once plain, for the
+MAIN_FAMILIES, MAIN_SEED; ``cluster --rna``, or with ``--cdna`` the cDNA
+reads of both strands) through the CLI on cuda twice: once plain, for the
 wall time and the engine's own phase and section times, then once under
 torch.profiler (CPU + CUDA activities) for the device busy time, the idle
-share (1 - busy / wall of the profiled run) and the top operators by device
-and by host time.  The last line is one JSON object with these numbers.
+share (1 - busy / wall of the profiled run), the device time of each of the
+port's kernels, lis_filter's launches and device time split by tier and by
+(M, B, bound bucket) (``lis_split``), and the top operators by device and
+by host time.  The last line is one JSON object with these numbers.
 """
 
 from __future__ import annotations
@@ -21,18 +24,22 @@ import time
 
 import torch
 
+from ..cluster import bulk
 from ..ops import kernels
 from ..utils import metrics
 from ..utils.synth import (MAIN_FAMILIES, MAIN_READS, MAIN_SEED,
                            synthetic_reads, write_fastq)
 from . import cli
 
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
 
-def _run(fq: str, out: str) -> float:
+
+def _run(fq: str, out: str, flags) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
-        rc = cli.main(["cluster", "-i", fq, "-o", out, "--rna"])
+        rc = cli.main(["cluster", "-i", fq, "-o", out, *flags])
     torch.cuda.synchronize()
     if rc != 0:
         raise RuntimeError(f"cluster exited {rc}")
@@ -45,33 +52,107 @@ def _device_us(avg) -> float:
                          getattr(avg, "self_cuda_time_total", 0.0)))
 
 
+def lis_split(run, keep: bool = False):
+    """Run ``run()`` under torch.profiler and split lis_filter's launches and
+    device time by tier M and by (M, B, bound bucket), the buckets being
+    powers of two.  Meanwhile the engine's lis_filter is passed through to
+    keep each launch's shape and bound tensor (no copy, no sync); after the
+    run the profiler's lis_filter kernels, in launch order, give each launch
+    its device time.  With ``keep`` the inputs of the largest chunk of each
+    tier are copied and kept too.  Returns (split, profiler, kept), split
+    being {"tiers": {M: {launches, ms}}, "shapes": {"M=.. B=.. bound<=..":
+    {launches, ms}}} with the shapes of most device time first, and kept
+    {M: [p1, p2, valid, bound]}."""
+    calls, kept = [], {}
+
+    def through(p1, p2, valid, kmer_size, hc_max_dist, bound):
+        n = kernels.lis_filter.launches
+        out = kernels.lis_filter(p1, p2, valid, kmer_size, hc_max_dist,
+                                 bound=bound)
+        if kernels.lis_filter.launches > n:
+            b, m = p1.shape
+            calls.append((m, b, bound))
+            if keep and b > kept.get(m, (0, None))[0]:
+                kept[m] = (b, [x.clone() for x in (p1, p2, valid, bound)])
+        return out
+
+    saved, bulk.lis_filter = bulk.lis_filter, through
+    try:
+        with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        bulk.lis_filter = saved
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "lis_filter_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    if len(ev) != len(calls):
+        raise RuntimeError(f"lis_split: {len(calls)} launches but "
+                           f"{len(ev)} lis_filter kernels in the trace")
+    bounds = (torch.cat([bd.reshape(1) for _m, _b, bd in calls]).tolist()
+              if calls else [])
+    tiers, shapes = {}, {}
+    for (m, b, _bd), bd, e in zip(calls, bounds, ev):
+        ms = e.time_range.elapsed_us() / 1e3
+        bucket = 1 << max(0, bd - 1).bit_length() if bd > 0 else 0
+        for table, key in ((tiers, m),
+                           (shapes, f"M={m} B={b} bound<={bucket}")):
+            row = table.setdefault(key, dict(launches=0, ms=0.0))
+            row["launches"] += 1
+            row["ms"] += ms
+    split = dict(tiers=dict(sorted(tiers.items())), shapes=dict(sorted(
+        shapes.items(), key=lambda kv: -kv[1]["ms"])))
+    return split, prof, {m: args for m, (_b, args) in sorted(kept.items())}
+
+
+def print_split(label: str, split: dict) -> None:
+    tiers = ", ".join(f"M={m}: {r['launches']} launches {r['ms']:.2f} ms"
+                      for m, r in split["tiers"].items())
+    print(f"  {label} lis_filter device time by tier: {tiers}")
+    top = "; ".join(f"{k}: {r['launches']} x, {r['ms']:.2f} ms"
+                    for k, r in list(split["shapes"].items())[:8])
+    print(f"  {label} lis_filter by shape (most device time first): {top}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_cluster needs a CUDA card", file=sys.stderr)
         return 2
+    cdna = "--cdna" in sys.argv[1:]
+    flags = [] if cdna else ["--rna"]
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         fq = os.path.join(tmp, "reads.fq")
-        write_fastq(synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED), fq)
+        write_fastq(synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED,
+                                    revcomp=cdna), fq)
         metrics.GLOBAL.stages.clear()
         kernels.reset_launches()
-        wall = _run(fq, tmp)
+        wall = _run(fq, tmp, flags)
         stages = dict(metrics.GLOBAL.stages)
         launches = kernels.launches()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            wall_prof = _run(fq, tmp)
+        walls = []
+        split, prof, _ = lis_split(
+            lambda: walls.append(_run(fq, tmp, flags)))
+        wall_prof = walls[0]
     cuda_events = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.time_range.elapsed_us() for e in cuda_events) / 1e6
     avgs = prof.key_averages()
     by_dev = sorted(avgs, key=_device_us, reverse=True)[:12]
+    # the port's own kernels, by their names in csrc/*.cu
+    kernel_ms = {name: sum(_device_us(a) for a in avgs
+                           if f"{name}_kernel" in a.key) / 1e3
+                 for name in launches}
     by_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
                     reverse=True)[:12]
     print(f"{torch.cuda.get_device_name(0)}: {MAIN_READS} reads, cluster "
-          f"{wall:.3f} s unprofiled, {wall_prof:.3f} s profiled; device busy "
+          f"{' '.join(flags) or '(cDNA)'} {wall:.3f} s unprofiled, "
+          f"{wall_prof:.3f} s profiled; device busy "
           f"{busy_s:.3f} s ({len(cuda_events)} device events), idle share "
           f"{1 - busy_s / wall_prof:.3f}")
+    print("kernels' device time (ms): " + ", ".join(
+        f"{k}={v:.1f} ({launches[k]} launches)" for k, v in kernel_ms.items()))
+    print_split("profiled run:", split)
     print("engine phases (s): " + ", ".join(
         f"{k}={v:.3f}" for k, v in sorted(stages.items())))
     print("top device time (self, ms / calls):")
@@ -83,9 +164,10 @@ def main() -> int:
               f"{a.key[:70]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
-        "wall_s": wall, "wall_profiled_s": wall_prof, "device_busy_s": busy_s,
+        "flags": flags, "wall_s": wall, "wall_profiled_s": wall_prof, "device_busy_s": busy_s,
         "idle_share": 1 - busy_s / wall_prof, "stages_s": stages,
-        "launches": launches}))
+        "launches": launches, "kernel_device_ms": kernel_ms,
+        "lis_split": split}))
     return 0
 
 

@@ -193,3 +193,82 @@ def rank_arrays(graph, n: int):
         for k, a in enumerate(ins):
             pred_rows[r, k] = rank_of[a] + 1
     return pred_rows, npred, letters, rank_nodes
+
+
+# --------------------------------------------------------------------------
+# match lists for lis_filter: join-shaped ones and ones that stress the scans
+# --------------------------------------------------------------------------
+
+I32_MIN = -(2 ** 31)
+I32_MAX = 2 ** 31 - 1
+LIS_CASES = ("all_invalid", "counts_1_2", "int32_min", "decreasing",
+             "tied_runs", "invalid_holes", "bound_zero", "bound_above")
+
+
+def match_lists(rng: np.random.Generator, b: int, m: int):
+    """Join-shaped lists: counts in [m // 4, m], a colinear majority (a long
+    LIS with gaps of up to 6, as related reads give) and a fifth of random
+    matches, sorted by (p1, p2); pads are p1 0, p2 INT32_MAX, invalid.
+    Returns int32 p1, p2, bool valid [b, m] and the counts [b]."""
+    n_valid = rng.integers(m // 4, m + 1, size=b)
+    p1 = np.sort(rng.integers(0, 8 * max(m, 1), (b, m)), axis=1)
+    p2 = np.where(rng.random((b, m)) < 0.8,
+                  p1 + rng.integers(-6, 7, (b, m)),
+                  rng.integers(0, 8 * max(m, 1), (b, m)))
+    order = np.lexsort((p2, p1), axis=1)
+    p1 = np.take_along_axis(p1, order, axis=1)
+    p2 = np.take_along_axis(p2, order, axis=1)
+    valid = np.arange(m)[None, :] < n_valid[:, None]
+    return (np.where(valid, p1, 0).astype(np.int32),
+            np.where(valid, p2, I32_MAX).astype(np.int32), valid, n_valid)
+
+
+def lis_cases(b: int, m: int, seed: int = 6):
+    """[(name, p1, p2, valid, bound)] in ``LIS_CASES`` order: [b, m] batches
+    (m >= 8) whose rows stress one rule of the LIS + filter + variance each;
+    ``bound`` is the int the scans stop at.
+
+    * all_invalid: every other row has no valid match;
+    * counts_1_2: one or two valid matches a row, anywhere in it (variance
+      0 for one anchor kept, +inf for two);
+    * int32_min: some valid p2 are INT32_MIN (level 0: nothing is below
+      it) and some INT32_MAX, the pad value;
+    * decreasing: strictly decreasing p2 (an LIS of 1);
+    * tied_runs: p2 in runs of equal values (ties do not extend the LIS);
+    * invalid_holes: invalid slots inside every list;
+    * bound_zero: a bound of 0 (nothing is scanned);
+    * bound_above: every count below the bound, which is m.
+    """
+    rng = np.random.default_rng(seed)
+    out = []
+    for name in LIS_CASES:
+        p1, p2, valid, n = match_lists(rng, b, m)
+        if name == "all_invalid":
+            valid[::2] = False
+        elif name == "counts_1_2":
+            valid[:] = False
+            for r in range(b):
+                at = np.sort(rng.choice(m, 1 + r % 2, replace=False))
+                valid[r, at] = True
+                # a far colinear second anchor is kept (n_dist 1); a lower
+                # one ends the LIS at 1 (n_dist 0)
+                p1[r, at] = 50 + 40 * np.arange(len(at))
+                p2[r, at] = p1[r, at] + (20 if r % 4 == 1 else -90) * \
+                    np.arange(len(at))
+        elif name == "int32_min":
+            hit = valid & (rng.random((b, m)) < 0.1)
+            p2[hit] = np.where(rng.random(int(hit.sum())) < 0.7, I32_MIN,
+                               I32_MAX)
+        elif name == "decreasing":
+            p2[:] = (10 * (m - np.arange(m)))[None, :]
+        elif name == "tied_runs":
+            p2[:] = (p1 // 4 * 4).astype(np.int32)
+            p2[:, ::3] = np.maximum(p2[:, ::3] - 4, 0)
+        elif name == "invalid_holes":
+            valid &= rng.random((b, m)) < 0.7
+        elif name == "bound_above":
+            valid[:, m - 4:] = False
+        bound = {"bound_zero": 0, "bound_above": m}.get(
+            name, int(np.nonzero(valid.any(axis=0))[0].max(initial=-1)) + 1)
+        out.append((name, p1, p2, valid, bound))
+    return out

@@ -4,17 +4,24 @@ tests/test_bulk_engine.py)."""
 
 import numpy as np
 import pytest
+import torch
 
 from rattle_tpu.cluster import oracle
 from rattle_tpu.cluster.bulk import BulkClusterEngine as JaxEngine
 from rattle_tpu.config import ClusterParams as JaxParams
 from rattle_tpu.ops.encode import reverse_complement_str
 from rattle_tpu.ops.sketch_device import build_device_sketch as jax_sketch
+from rattle_tpu_torch.cluster import bulk
 from rattle_tpu_torch.cluster.bulk import BulkClusterEngine, cluster_reads_bulk
 from rattle_tpu_torch.config import ClusterParams
+from rattle_tpu_torch.io.hpsio import write_clusters
 from rattle_tpu_torch.ops.sketch_device import sketch_from_numpy
 from rattle_tpu_torch.utils.checkpoint import ClusterCheckpoint
 from tests.conftest import make_read, mutate
+
+# the engine's plain kernel versions are many small torch ops; the run has
+# several workers
+torch.set_num_threads(1)
 
 
 def _sig(clusters):
@@ -83,6 +90,34 @@ def test_engine_rare_path_overflow_tier():
     got = eng.cluster()
     assert eng.n_oracle_fallbacks > 0
     assert _sig(got) == _sig(oracle.cluster_reads(seqs, params))
+
+
+def test_engine_cache_free_sweep_tiles(monkeypatch, tmp_path):
+    """Above CACHE_MAX_N reads the engine keeps no score cache (merge rounds
+    score representative pairs again), and a block's seeds sweep the rest
+    of the pool in SWEEP_TILE-column tiles.  Both lowered, with blocks of 16
+    reads, a 64-read input takes both paths: clusters.out is the oracle's
+    byte for byte."""
+    monkeypatch.setattr(bulk, "CACHE_MAX_N", 32)
+    monkeypatch.setattr(bulk, "SWEEP_TILE", 16)
+    seqs = _families(9, n_fam=8, per=(8, 10), err=0.08)[:64]
+    params = ClusterParams(is_rna=True)
+    eng = BulkClusterEngine(seqs, params, device="cpu")
+    assert len(seqs) == 64 and eng.sweep_cpad == 16
+    assert all(c is None for c in eng._cache.values())
+    eng.k_block = 16
+    waves = []
+    wave = eng._wave
+    monkeypatch.setattr(eng, "_wave", lambda rows, cols, *a, **kw: (
+        waves.append((len(rows), len(cols), kw.get("ordered", a[-1]))),
+        wave(rows, cols, *a, **kw))[1])
+    paths = {name: str(tmp_path / name) for name in ("engine", "oracle")}
+    write_clusters(eng.cluster(), paths["engine"])
+    write_clusters(oracle.cluster_reads(seqs, params), paths["oracle"])
+    sweeps = [c for _r, c, ordered in waves if not ordered]
+    assert sweeps and max(sweeps) == 16   # the sweep ran in 16-column tiles
+    with open(paths["engine"], "rb") as a, open(paths["oracle"], "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_engine_merge_round_nonidentity_gather():

@@ -14,6 +14,10 @@ from rattle_tpu.ops.pallas_kernels import (POOL_TILE, bv_common_matmul,
                                            lis_filter_pallas)
 from rattle_tpu.ops.similarity import _variance
 from rattle_tpu_torch.ops import kernels
+from rattle_tpu_torch.utils.synth import LIS_CASES, lis_cases
+
+# the plain versions are many small torch ops; the run has several workers
+torch.set_num_threads(1)
 
 
 def _popcount_ref(pool, seed):
@@ -104,8 +108,43 @@ def _assert_lis_equal(got, ref):
     np.testing.assert_allclose(got[3], ref[3], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("use_bound", [False, True])
+def _lis_adversarial(name):
+    """One batch of utils/synth.lis_cases against the Pallas kernel with its
+    bound and against the select twin on the lists cut at the bound."""
+    _n, p1, p2, valid, bound = dict(
+        (c[0], c) for c in lis_cases(16, 64))[name]
+    k, hc = 10, 10
+    cut = valid & (np.arange(p1.shape[1])[None, :] < bound)
+    pallas = [np.asarray(x) for x in lis_filter_pallas(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid), k, hc,
+        interpret=True, bound=jnp.int32(bound))]
+    twin = _select_twin(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(cut),
+                        k, hc)
+    got = [x.numpy() for x in kernels.lis_filter(
+        torch.from_numpy(p1), torch.from_numpy(p2), torch.from_numpy(valid),
+        k, hc, bound=torch.tensor([bound], dtype=torch.int32))]
+    _assert_lis_equal(got, pallas)
+    _assert_lis_equal(got, twin)
+    np.testing.assert_array_equal(np.isinf(got[3]), np.isinf(pallas[3]))
+    return got
+
+
+@pytest.mark.parametrize("use_bound", [False, True, *LIS_CASES])
 def test_lis_plain_matches_pallas_and_select(use_bound):
+    """False / True: join-shaped random lists, scanned to M or to the
+    batch's largest count; a name: that adversarial batch of
+    utils/synth.lis_cases (all-invalid rows, one or two matches, INT32_MIN
+    p2, decreasing p2, tied runs, invalid holes, bound 0, a bound above
+    every count)."""
+    if not isinstance(use_bound, bool):
+        got = _lis_adversarial(use_bound)
+        if use_bound == "counts_1_2":   # var 0 (n_dist 0) and +inf (1)
+            assert set(got[2].tolist()) == {0, 1}
+            assert np.isinf(got[3]).any() and (got[3] == 0).any()
+        elif use_bound in ("all_invalid", "bound_zero"):
+            empty = got[0] == 0
+            assert empty.any() and (got[3][empty] == 0).all()
+        return
     rng = np.random.default_rng(11 + use_bound)
     b, m, k, hc = 16, 48, 10, 10
     for _trial in range(3):
@@ -150,6 +189,9 @@ def test_wrappers_reject_bad_inputs():
         kernels.lis_filter(p, p, torch.zeros((4, 8), dtype=torch.int8), 10)
     with pytest.raises(ValueError):
         kernels.lis_filter(p.T, p.T, torch.zeros((8, 4), dtype=torch.bool), 10)
+    long = torch.zeros((1, kernels.LIS_MAX_M + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        kernels.lis_filter(long, long, long.bool(), 10)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
