@@ -43,10 +43,25 @@ Phases, each ending in one summary line:
      over 128 matches, rescored on the host in f64;
      ``correct`` on cuda the same three files as ``--poa-backend host``
      with no pack on the host aligner; ``polish`` on cuda the same
-     transcriptome.fq as ``polish --oracle --poa-backend host``.
+     transcriptome.fq as ``polish --oracle --poa-backend host``;
+  8. the multi-process cluster path: two ranks of one gloo process group
+     (this script's ``--rank-worker``, started by parallel.launch.run_ranks
+     under the RATTLE_* contract, both on cuda:0, each under one deadline)
+     run through the CLI: on phase 7's 256 reads ``cluster --rna`` and cDNA
+     ``cluster``, each on the mesh and with ``--shard-input``, and
+     ``cluster --iso`` on the mesh, every rank-0 clusters.out equal to
+     ``--oracle``'s; ``cluster --rna --shard-input`` with every borderline
+     pair rescored on the host, at least one rescore needing the other
+     rank's read; at full size ``cluster --rna`` and cDNA ``cluster`` with
+     ``--shard-input`` on phase 5's 8,192 reads, equal to phase 5's
+     output, with bv_common and lis_filter launched on each rank; and
+     ``polish --rna --summary`` on phase 6's consensi.fq, equal to phase
+     6's files.  Rank 1 writes nothing.  The phase line gives each run's
+     wall time beside phase 5's single-process time, each rank's bytes and
+     seconds in collectives and its launch counts.
 
-Launch counts are set to 0 just before each CLI run and read just after it;
-the kernels line reports bv_common and lis_filter from the ``--rna``
+Launch counts are set to 0 just before each CLI run and read just after it
+(in each rank for phase 8); the kernels line reports bv_common and lis_filter from the ``--rna``
 ``cluster`` run and poa_align from the ``correct`` run.  With
 ``--kernels-only`` the script stops after phase 4 (a quick build-and-compare
 of the kernels) and prints no final ``ok`` line.
@@ -874,10 +889,167 @@ def phase_parity():
     return res
 
 
+# phase 8: (label, argv after the mode's input and output, fastq and
+# reference directory under WORK, engine constants)
+RANK_RUNS = (
+    ("rna_8192_shard", ["cluster", "--rna", "--shard-input"], "rna.fq",
+     "rna_out", {}),
+    ("cdna_8192_shard", ["cluster", "--shard-input"], "cdna.fq", "cdna_out",
+     {}),
+    ("rna_mesh", ["cluster", "--rna"], "parity_rna.fq", "parity_rna_oracle",
+     {}),
+    ("rna_shard", ["cluster", "--rna", "--shard-input"], "parity_rna.fq",
+     "parity_rna_oracle", {}),
+    ("cdna_mesh", ["cluster"], "parity_cdna.fq", "parity_cdna_oracle", {}),
+    ("cdna_shard", ["cluster", "--shard-input"], "parity_cdna.fq",
+     "parity_cdna_oracle", {}),
+    ("iso_mesh", ["cluster", "--rna", "--iso"], "parity_iso.fq",
+     "parity_iso_oracle", {}),
+    ("rna_shard_all_borderline", ["cluster", "--rna", "--shard-input"],
+     "parity_rna.fq", "parity_rna_oracle", dict(VAR_BAND_REL=1e12)),
+    ("polish", ["polish", "--rna", "--summary"],
+     os.path.join("correct_out", "consensi.fq"), "polish_out", {}),
+)
+RANKS = 2
+RANK_DEADLINE_S = 600
+
+
+def rank_worker(spec_json: str) -> int:
+    """One rank of phase 8: join the process group, run each CLI run of the
+    spec with the launch and collective counts set to 0 just before it, and
+    print one JSON record (rank, device, and for each run its wall time,
+    launches, collective bytes and seconds, host rescores and reads
+    fetched from the other rank) as the last line."""
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.parallel import launch
+    from rattle_tpu_torch.pipeline import cli
+    from rattle_tpu_torch.utils import metrics
+    launch.init_distributed()
+    rank = launch.process_index()
+    runs = []
+    for label, argv, consts in json.loads(spec_json):
+        argv = [a.replace("{rank}", str(rank)) for a in argv]
+        metrics.GLOBAL.stages.clear()
+        metrics.GLOBAL.counters.clear()
+        with _engine_constants(**consts):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            launch.reset_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c = metrics.GLOBAL.counters
+        runs.append(dict(label=label, rc=rc, wall_s=wall,
+                         launches=kernels.launches(), **launch.STATS,
+                         host_rescores=int(c.get("cluster.host_rescores", 0)),
+                         remote_reads=int(c.get("cluster.remote_reads", 0))))
+        if rc != 0:
+            break
+    print(json.dumps(dict(rank=rank, world=launch.process_count(),
+                          device=f"cuda:{torch.cuda.current_device()}",
+                          runs=runs)))
+    return 0 if all(r["rc"] == 0 for r in runs) else 1
+
+
+def phase_ranks(main_res):
+    """Phase 8: the RANK_RUNS through the CLI on two ranks sharing the card,
+    each rank in its own output directory; rank 0's files against the
+    references, rank 1's directory empty."""
+    from rattle_tpu_torch.parallel import launch
+    from rattle_tpu_torch.utils.synth import MAIN_READS
+    torch.cuda.empty_cache()
+    spec, outs = [], {}
+    for label, argv, fq, _ref, consts in RANK_RUNS:
+        outs[label] = [os.path.join(WORK, f"ranks_{label}_r{r}")
+                       for r in range(RANKS)]
+        for d in outs[label]:
+            os.makedirs(d)
+        out = os.path.join(WORK, f"ranks_{label}_r{{rank}}")
+        spec.append((label, [argv[0], "-i", os.path.join(WORK, fq), "-o",
+                             out, *argv[1:]], consts))
+    t0 = time.perf_counter()
+    res = launch.run_ranks(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker",
+         json.dumps(spec)], RANKS, RANK_DEADLINE_S,
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT)
+    wall = time.perf_counter() - t0
+    recs = []
+    for rank, (rc, out, err) in enumerate(res):
+        lines = out.strip().splitlines()
+        check(rc == 0 and lines, f"phase 8: rank {rank} exited {rc} "
+              f"(deadline {RANK_DEADLINE_S} s); stderr tail:\n"
+              f"{err[-4000:]}")
+        recs.append(json.loads(lines[-1]))
+    check([r["rank"] for r in recs] == list(range(RANKS))
+          and all(r["world"] == RANKS for r in recs),
+          f"phase 8: ranks {[(r['rank'], r['world']) for r in recs]}")
+    single = {"rna_8192_shard": main_res["rna"]["cluster_s"],
+              "cdna_8192_shard": main_res["cdna"]["cluster_s"]}
+    rows = {}
+    for i, (label, argv, _fq, ref, consts) in enumerate(RANK_RUNS):
+        runs = [r["runs"][i] for r in recs]
+        check(all(r["label"] == label for r in runs), f"phase 8: {label}")
+        names = ("transcriptome.fq", "polish_summary.tsv") \
+            if argv[0] == "polish" else ("clusters.out",)
+        _same_files(outs[label][0], os.path.join(WORK, ref), names,
+                    f"ranks {label}")
+        for d in outs[label][1:]:
+            check(os.listdir(d) == [], f"phase 8 {label}: a rank other "
+                  f"than 0 wrote {os.listdir(d)}")
+        # every rank launches both cluster kernels at full size; on the
+        # small inputs a rank's columns may gate no pair, so there the
+        # ranks together must have launched them (and, in polish, each
+        # rank aligns every pack)
+        need = ("poa_align",) if argv[0] == "polish" else ()
+        if label in single:
+            need += CLUSTER_KERNELS
+        for rank, r in enumerate(runs):
+            check(all(r["launches"][k] for k in need),
+                  f"phase 8 {label}: rank {rank} launched {r['launches']}")
+            check(r["calls"] > 0, f"phase 8 {label}: rank {rank} made no "
+                  "collective")
+        check(all(sum(r["launches"][k] for r in runs)
+                  for k in CLUSTER_KERNELS),
+              f"phase 8 {label}: a cluster kernel never ran: "
+              f"{[r['launches'] for r in runs]}")
+        if consts:
+            check(all(r["host_rescores"] > 0 for r in runs),
+                  f"phase 8 {label}: no host rescore on a rank")
+            check(sum(r["remote_reads"] for r in runs) > 0,
+                  f"phase 8 {label}: no rescore needed the other rank's "
+                  "read")
+        rows[label] = dict(single_s=single.get(label), ranks=runs)
+        print(f"  ranks {label}: "
+              + "; ".join(f"rank {k} {r['wall_s']:.2f} s, collectives "
+                          f"{r['calls']} / {r['bytes_sent']} B sent / "
+                          f"{r['bytes_recv']} B received / "
+                          f"{r['seconds']:.3f} s, host rescores "
+                          f"{r['host_rescores']}, remote reads "
+                          f"{r['remote_reads']}, launches {r['launches']}"
+                          for k, r in enumerate(runs))
+              + (f" (single process, phase 5: {single[label]:.2f} s)"
+                 if label in single else ""))
+    print(f"phase 8 ranks: {RANKS} ranks on "
+          f"{sorted({r['device'] for r in recs})} in {wall:.1f} s; "
+          "cluster rna/cDNA (mesh and --shard-input) and --iso on "
+          f"{N_PARITY} reads match --oracle, so does --shard-input with "
+          "every borderline pair rescored on the host (reads fetched from "
+          f"the other rank); --shard-input on {MAIN_READS} reads matches "
+          "phase 5 ("
+          + ", ".join(f"{lb} {rows[lb]['ranks'][0]['wall_s']:.2f} s against "
+                      f"{single[lb]:.2f} s" for lb in single)
+          + "); polish matches phase 6; rank 1 wrote nothing")
+    return dict(wall_s=wall, device=recs[0]["device"], runs=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2])
     dev = torch.device("cuda")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -893,6 +1065,7 @@ def main() -> int:
     main_res, fq, clusters_out = phase_main_path()
     correct_res = phase_correct(fq, clusters_out, main_res["rna"]["reads"])
     parity = phase_parity()
+    ranks = phase_ranks(main_res)
     launches = dict(main_res["rna"]["launches"],
                     poa_align=correct_res["launches"]["poa_align"])
 
@@ -918,7 +1091,7 @@ def main() -> int:
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
                   lis_filter=lis_rows, poa_align=poa_rows,
                   main_path=main_res, correct_path=correct_res,
-                  parity=parity,
+                  parity=parity, ranks=ranks,
                   total_s=time.perf_counter() - t_start, **kernels_line)
     with open(os.path.join(WORK, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1)

@@ -2,7 +2,10 @@
 
 The clustering path (``cluster``, ``cluster --iso``, ``cluster_summary``,
 ``extract_clusters``) runs on the card through two hand-written CUDA kernels
-(``csrc/bv_common.cu``, ``csrc/lis_filter.cu``).  Framework-free modules are
+(``csrc/bv_common.cu``, ``csrc/lis_filter.cu``), ``correct`` and ``polish``
+through a third (``csrc/poa_align.cu``).  Several processes, one device
+each, run ``cluster`` as one gloo group (``parallel/launch.py``).
+Framework-free modules are
 copies of their ``rattle_tpu`` counterparts; nothing here imports JAX or
 ``rattle_tpu``.
 """

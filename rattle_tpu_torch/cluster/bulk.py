@@ -1,6 +1,6 @@
 """Device clustering engine: exact greedy parity at batch granularity.
 
-Port of rattle_tpu/cluster/bulk.py for one device.  The reference's greedy
+Port of rattle_tpu/cluster/bulk.py.  The reference's greedy
 loop (cluster.cpp:124-166) is replayed in O(N/K) decision waves:
 
   1. BLOCK: take the first K unclustered reads (in greedy order).  Every
@@ -32,12 +32,31 @@ sized exactly (``nonzero``), so there is no pair budget to overflow and redo,
 and waves are not padded to power-of-two buckets.  The decisions are the
 same; every scatter's indices are unique within its call, so plain masked
 index writes replace JAX's ``.at[].max(mode="drop")``.
+
+Mesh mode (``mesh=``, a parallel.launch.DataMesh): the JAX engine lets XLA's
+SPMD partitioner split its programs over the reads axis; here the split is
+explicit.  Rank r holds the sketch rows of its contiguous slice of the
+length-sorted reads (``shard_plan``) and decides, in every wave, the columns
+it owns:
+
+  1. the rows' forward tables are assembled on every rank from their owners
+     (one allgather; a sweep reuses its block's);
+  2. each rank gates and scores its own columns with the unchanged chain;
+  3. the rare host rescores run where their column lives (with
+     ``shard=``, the reads another rank owns are fetched first);
+  4. the block's win matrix, or the sweep's packed first-claim vector, is
+     allgathered, so every rank replays the same greedy sweep.
+
+Every rank calls the same collectives in the same order, whatever its share
+of the pairs.  The score cache stays on, one per rank over the pairs of its
+own columns: outcomes do not depend on it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,7 +70,10 @@ from ..ops import gates
 from ..ops.encode import encode_seq
 from ..ops.join_device import join_expand
 from ..ops.kernels import bv_common, lis_filter
-from ..ops.sketch_device import DeviceSketch, build_device_sketch
+from ..ops.sketch import PAD_HASH
+from ..ops.sketch_device import (DeviceSketch, build_device_sketch,
+                                 build_device_sketch_sharded)
+from ..parallel import launch
 from ..utils import metrics
 from ..utils.varmath import var as exact_var
 from . import oracle
@@ -126,18 +148,25 @@ def gate_class_block(bvp_rows, bvc_rows, order_rows, group_rows,
     return rows[order], cols[order], counts.tolist()
 
 
-def score_chunk(rows, cols, row_ids, col_ids, hs_a, ps_a, nk, hs_b, ps_b,
-                lens, sc_tab, t_v, var_band, strand_val: int, w, cache,
-                cache_n: int, m_cap: int, kmer_size: int, hc_max_dist: int):
+def score_chunk(rows, cols, row_ids, col_ids, row_tab, col_tab, hs_a, ps_a,
+                nk, hs_b, ps_b, lens, sc_tab, t_v, var_band, strand_val: int,
+                w, cache, cache_n: int, m_cap: int, kmer_size: int,
+                hc_max_dist: int):
     """Join + LIS decision for one chunk of (row, col) pairs
     (similarity.cpp:4-97 + cluster.cpp:24-37).  Wins are written into ``w``
     and decided outcomes into the score cache, in place.  Returns (border
     [CH] bool, total [CH] int32): border = variance within the f64 band of
-    t_v (host rescored), total = the exact match count."""
+    t_v (host rescored), total = the exact match count.
+
+    ``row_ids``/``col_ids`` are global read ids (nk, lens, the cache);
+    ``row_tab``/``col_tab`` index the rows of ``hs_a``/``hs_b`` (the same
+    tensors unless the tables hold a mesh rank's rows)."""
     a_ids = row_ids[rows]
     b_ids = col_ids[cols]
-    p1, p2, total = join_expand(hs_a[a_ids], ps_a[a_ids], nk[a_ids],
-                                hs_b[b_ids], ps_b[b_ids], nk[b_ids], m_cap)
+    a_t = a_ids if row_tab is row_ids else row_tab[rows]
+    b_t = b_ids if col_tab is col_ids else col_tab[cols]
+    p1, p2, total = join_expand(hs_a[a_t], ps_a[a_t], nk[a_ids],
+                                hs_b[b_t], ps_b[b_t], nk[b_ids], m_cap)
     n_valid = torch.clamp(total, max=m_cap)
     mvalid = torch.arange(m_cap, device=p1.device)[None, :] < n_valid[:, None]
     # the scans stop at the chunk's largest match count (exact); the kernel
@@ -221,6 +250,74 @@ def absorb_rest(w: torch.Tensor) -> torch.Tensor:
     return torch.where(won, packed, -1)
 
 
+@dataclasses.dataclass
+class _Sides:
+    """The pairs of one wave: rows x the columns this process decides.
+    ``*_np`` / ``*_ids``: global read ids on the host / the device (nk,
+    lens, groups, the score cache); ``*_tab``: the rows of the tables that
+    hold them; ``col_pos``: each column's position in the wave's list."""
+
+    row_np: np.ndarray
+    col_np: np.ndarray
+    col_pos: np.ndarray
+    row_ids: torch.Tensor
+    col_ids: torch.Tensor
+    row_tab: torch.Tensor
+    col_tab: torch.Tensor
+    bvp_rows: torch.Tensor
+    bvc_rows: torch.Tensor
+    row_tables: object      # cls_i -> (hs, ps) forward tables of the rows
+
+
+@dataclasses.dataclass
+class _RowTables:
+    """A wave's row reads, assembled on every mesh rank: their forward
+    tables (entries past a read's nk are PAD_HASH / 0, as in the sketch)
+    and 6-mer words."""
+
+    bvp: torch.Tensor
+    bvc: torch.Tensor
+    hs: torch.Tensor
+    ps: torch.Tensor
+    widths: Sequence[int]       # the engine's class widths
+
+    def __post_init__(self):
+        self._cls: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def __call__(self, cls_i: int):
+        """The rows' (hs, ps) at class ``cls_i``'s width."""
+        got = self._cls.get(cls_i)
+        if got is None:
+            wid = self.widths[cls_i]
+            have = self.hs.shape[1]
+            if wid <= have:
+                got = (self.hs[:, :wid], self.ps[:, :wid])
+            else:
+                pad = (self.hs.shape[0], wid - have)
+                got = (torch.cat([self.hs, self.hs.new_full(pad, PAD_HASH)],
+                                 1),
+                       torch.cat([self.ps, self.ps.new_zeros(pad)], 1))
+            self._cls[cls_i] = got
+        return got
+
+    def take(self, pos: np.ndarray) -> "_RowTables":
+        idx = torch.from_numpy(pos.astype(np.int64)).to(self.hs.device)
+        return _RowTables(self.bvp[idx], self.bvc[idx], self.hs[idx],
+                          self.ps[idx], self.widths)
+
+
+def shard_plan(world: int, rank: int, n: int) -> Tuple[int, int, int]:
+    """(start, end, n_pad): rank ``rank``'s contiguous slice of the n
+    length-sorted reads, by the JAX engine's rule: pad to a multiple of
+    lcm(256, world), then ``n_pad // world`` rows a rank (a rank past the
+    last read gets an empty slice)."""
+    n_pad_to = 256 * world // math.gcd(256, world)
+    n_pad = -(-n // n_pad_to) * n_pad_to
+    rows = n_pad // world
+    start = rank * rows
+    return start, max(start, min(start + rows, n)), n_pad
+
+
 # --------------------------------------------------------------------------
 # engine
 # --------------------------------------------------------------------------
@@ -231,20 +328,61 @@ class BulkClusterEngine:
 
     def __init__(self, seqs: Sequence[str], params: ClusterParams,
                  sketch: Optional[DeviceSketch] = None,
-                 groups: Optional[np.ndarray] = None, device="cuda"):
+                 groups: Optional[np.ndarray] = None, device="cuda",
+                 mesh: Optional[launch.DataMesh] = None, shard=None):
+        """``mesh``: decide over the ranks of a parallel.launch.DataMesh (on
+        its device).  ``shard=(global_lens, start)``: per-rank input
+        sharding -- ``seqs`` is only this rank's contiguous slice of the
+        globally length-sorted reads, beginning at global row ``start``;
+        every rank knows all read lengths but holds no other rank's
+        sequences (fetched on demand by the rare host rescore)."""
         if params.use_hc:
             # unreachable from the reference CLI (no main.cpp flag sets
             # use_hc); score_chunk gates on `bases`
             raise NotImplementedError("use_hc not supported by the bulk "
                                       "engine; use the oracle engine")
         self.p = params
-        self.device = resolve(device)
-        self.seqs = list(seqs)
-        self.n = len(self.seqs)
-        self.read_lens = [len(s) for s in self.seqs]
-        self.sk = sketch if sketch is not None else build_device_sketch(
-            self.seqs, params.kmer_size, not params.is_rna,
-            device=self.device)
+        self.mesh = mesh
+        self.device = resolve(mesh.device if mesh is not None else device)
+        if shard is not None:
+            if mesh is None:
+                raise ValueError("shard= requires mesh=")
+            global_lens, start = shard
+            self.seqs = None
+            self._local_seqs = {start + i: s for i, s in enumerate(seqs)}
+            self.read_lens = [int(x) for x in global_lens]
+        else:
+            self.seqs = list(seqs)
+            self._local_seqs = None
+            self.read_lens = [len(s) for s in self.seqs]
+        self.n = len(self.read_lens)
+        k = params.kmer_size
+        if mesh is None:
+            self.sk = sketch if sketch is not None else build_device_sketch(
+                self.seqs, k, not params.is_rna, device=self.device)
+            self.nk, self.lens = self.sk.nk, self.sk.lens
+        else:
+            if sketch is not None:
+                raise ValueError("sketch= and mesh= exclude each other")
+            start, end, n_pad = shard_plan(mesh.world, mesh.rank, self.n)
+            if shard is not None and shard[1] != start:
+                raise ValueError(f"shard starts at {shard[1]}, rank "
+                                 f"{mesh.rank}'s slice at {start}")
+            lens_p = np.zeros(n_pad, np.int32)
+            lens_p[:self.n] = self.read_lens
+            if np.any(lens_p[:self.n] <= max(k, 6)):
+                bad = int(np.argmin(lens_p[:self.n]))
+                raise ValueError(f"read {bad} too short (len {lens_p[bad]}) "
+                                 f"for k={k}")
+            self.row0, self.n_rows = start, n_pad // mesh.world
+            local = list(seqs) if shard is not None else self.seqs[start:end]
+            self.sk = build_device_sketch_sharded(
+                local, lens_p[:self.n], start, self.n_rows, k,
+                not params.is_rna, device=self.device)
+            self.lens = torch.from_numpy(lens_p).to(self.device)
+            self.nk = torch.where(self.lens > 0, self.lens - k, 0)
+        self.nk_host = self.nk.cpu().numpy()
+        self.n_remote_reads = 0
         sk = self.sk
         self.k_block = min(4096, self.n)
         self.sweep_cpad = min(SWEEP_TILE, self.n)
@@ -253,9 +391,10 @@ class BulkClusterEngine:
         widths = sorted({min(w, full_w) for w in K_CLASSES if w} | {full_w})
         self.class_bounds = widths[:-1]
         self.n_classes = len(widths)
+        # entries past nk are never read
+        self._cls_widths = [min(wid, sk.kmax) for wid in widths]
         self._cls_tabs = []
-        for wid in widths:
-            wid = min(wid, sk.kmax)  # entries past nk are never read
+        for wid in self._cls_widths:
             tabs = {"hs": sk.hs[:, :wid], "ps": sk.ps[:, :wid]}
             if not params.is_rna:
                 tabs["rev_hs"] = sk.rev_hs[:, :wid]
@@ -277,7 +416,8 @@ class BulkClusterEngine:
         # cross-round score cache (outcomes are threshold-independent,
         # directional: a = seed side); 0 unscored / 1 score-no / 2 score-yes.
         # uint8 [n^2] per strand: 64 MiB each at 8192 reads, 256 MiB at the
-        # 16384-read cap; off (None) above it.
+        # 16384-read cap; off (None) above it.  On a mesh each rank writes
+        # only the pairs of the columns it owns.
         self.cache_n = self.n
         self._cache: Dict[bool, Optional[torch.Tensor]] = {}
         for rev in ([False] if params.is_rna else [False, True]):
@@ -292,8 +432,13 @@ class BulkClusterEngine:
             else np.asarray(groups, np.int32)
         self._groups_dev = torch.from_numpy(self.groups).to(self.device)
         # wall-clock per phase (greedy, merge) and per wave section (gate,
-        # score, rescore, replay), accumulated by cluster()
+        # score, rescore, replay; rows on a mesh), accumulated by cluster()
         self.phase_times: Dict[str, float] = {}
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes shared files (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ---------- helpers ----------
 
@@ -305,17 +450,37 @@ class BulkClusterEngine:
             self._bv_tables[threshold] = tab
         return tab
 
-    def _class_tables(self, cls_i: int, rev: bool):
-        t = self._cls_tabs[cls_i]
-        return (t["hs"], t["ps"],
-                t["rev_hs"] if rev else t["hs"],
-                t["rev_ps"] if rev else t["ps"])
+    def _seq(self, i: int) -> str:
+        """Read i's sequence; with ``shard=`` it must be this rank's or
+        already fetched by _ensure_seqs."""
+        if self.seqs is not None:
+            return self.seqs[i]
+        return self._local_seqs[i]
+
+    def _ensure_seqs(self, ids) -> None:
+        """With ``shard=``: make the reads ``ids`` (the same sorted list on
+        every rank) available on every rank in ONE collective.  Owners
+        contribute their reads, a max-combine assembles them.  No local
+        early-out: another rank may miss a read this one owns."""
+        lmax = max(self.read_lens[i] for i in ids)
+        buf = np.zeros((len(ids), lmax), np.uint8)
+        for r, i in enumerate(ids):
+            s = self._local_seqs.get(i)
+            if s is not None:
+                raw = np.frombuffer(s.encode("ascii"), np.uint8)
+                buf[r, :len(raw)] = raw
+        got = launch.allgather_to_hosts(buf).reshape(-1, len(ids), lmax)
+        tot = got.max(axis=0)
+        for r, i in enumerate(ids):
+            if i not in self._local_seqs:
+                self._local_seqs[i] = tot[r, :self.read_lens[i]].tobytes() \
+                    .decode("ascii")
 
     def _okm(self, i: int) -> oracle.ReadKmers:
         km = self._oracle_kmers.get(i)
         if km is None:
             km = oracle.extract_kmers(
-                encode_seq(self.seqs[i]), self.p.kmer_size,
+                encode_seq(self._seq(i)), self.p.kmer_size,
                 not self.p.is_rna)
             self._oracle_kmers[i] = km
         return km
@@ -361,7 +526,7 @@ class BulkClusterEngine:
             if native.available():
                 uniq = sorted({i for _rev, a, b in todo for i in (a, b)})
                 remap = {g: i for i, g in enumerate(uniq)}
-                sub = build_sketch_tables([self.seqs[i] for i in uniq],
+                sub = build_sketch_tables([self._seq(i) for i in uniq],
                                           self.p.kmer_size,
                                           not self.p.is_rna)
                 a_ids = np.array([remap[a] for _rev, a, _b in todo], np.int32)
@@ -393,54 +558,84 @@ class BulkClusterEngine:
     # ---------- one batched decision wave ----------
 
     def _score_range(self, rows, cols, cls_i: int, chunk: int, m_cap: int,
-                     d_row_ids, d_col_ids, rev: bool, w, consts):
+                     s: _Sides, rev: bool, w, consts):
         """score_chunk over one class's contiguous pair slice, ``chunk``
         pairs at a time; returns (border, total) for the slice."""
-        sk = self.sk
-        hs_a, ps_a, hs_b, ps_b = self._class_tables(cls_i, rev)
+        hs_a, ps_a = s.row_tables(cls_i)
+        t = self._cls_tabs[cls_i]
+        hs_b = t["rev_hs"] if rev else t["hs"]
+        ps_b = t["rev_ps"] if rev else t["ps"]
         parts = [score_chunk(
-            rows[s:s + chunk], cols[s:s + chunk], d_row_ids, d_col_ids, hs_a,
-            ps_a, sk.nk, hs_b, ps_b, sk.lens, self.score_min, *consts,
-            1 if rev else 2, w, self._cache[rev], self.cache_n, m_cap,
-            self.p.kmer_size, self.p.hc_max_dist)
-            for s in range(0, rows.shape[0], chunk)]
+            rows[i:i + chunk], cols[i:i + chunk], s.row_ids, s.col_ids,
+            s.row_tab, s.col_tab, hs_a, ps_a, self.nk, hs_b, ps_b, self.lens,
+            self.score_min, *consts, 1 if rev else 2, w, self._cache[rev],
+            self.cache_n, m_cap, self.p.kmer_size, self.p.hc_max_dist)
+            for i in range(0, rows.shape[0], chunk)]
         return (torch.cat([b for b, _ in parts]),
                 torch.cat([t for _, t in parts]))
 
     def _wave(self, row_ids: np.ndarray, col_ids: np.ndarray,
-              threshold: float, ordered: bool) -> np.ndarray:
-        """One decision wave, per strand:
-
-          gate_class_block: gate + compaction + class sort
-          tier-0 pass x class: match counts + decisions of the pairs that fit
-          tier_partition: cheap-reject + M-tier routing of the rest
-          score pass x (class, tier): the remaining decisions
-
-        then the rare paths (borderline variance, match-count overflow:
-        exact host rescore patched into ``w``) and the replay (greedy_owner
-        for an ordered block, absorb_rest for a sweep).
+              threshold: float, ordered: bool,
+              tables: Optional[_RowTables] = None) -> np.ndarray:
+        """One decision wave: every (row, col) pair decided into a win
+        matrix ``w`` (``_decide``), then the rare paths (borderline
+        variance, match-count overflow: exact host rescore patched into
+        ``w``) and the replay (greedy_owner for an ordered block,
+        absorb_rest for a sweep).
 
         ``ordered``: rows/cols are the same greedy-ordered list (block
         phase) -- only pairs with row position < col position are tested.
         Otherwise every (row, col) pair is tested (sweep phase; rows are
         seeds, all of which precede all cols in greedy order).
 
+        ``tables``: on a mesh, the rows' tables if already assembled.
         Returns the packed replay vector (np.int32)."""
+        if self.mesh is not None:
+            return self._wave_mesh(row_ids, col_ids, threshold, ordered,
+                                   tables)
         sk = self.sk
         dev = self.device
         a = len(row_ids)
-        c = len(col_ids)
-        tab = self._bv_table(threshold)
         d_row_ids = torch.from_numpy(row_ids.astype(np.int64)).to(dev)
         d_col_ids = torch.from_numpy(col_ids.astype(np.int64)).to(dev)
-        group_rows = self._groups_dev[d_row_ids]
-        group_cols = self._groups_dev[d_col_ids]
-        bvp_rows = sk.bvp[d_row_ids]
-        bvc_rows = sk.bvc[d_row_ids]
-        bvc_cols = sk.bvc[d_col_ids]
+        s = _Sides(row_ids, col_ids, np.arange(len(col_ids)), d_row_ids,
+                   d_col_ids, d_row_ids, d_col_ids, sk.bvp[d_row_ids],
+                   sk.bvc[d_row_ids],
+                   lambda i: (self._cls_tabs[i]["hs"],
+                              self._cls_tabs[i]["ps"]))
+        w = torch.zeros((a, len(col_ids)), dtype=torch.int8, device=dev)
+        host_jobs = self._decide(s, threshold, ordered, w)
+        t0 = time.perf_counter()
+        if host_jobs:
+            self._patch_host(w, host_jobs)
+            t0 = self._tick("rescore", t0)
+        replay = greedy_owner(w, a) if ordered else absorb_rest(w)
+        packed = replay.cpu().numpy()
+        self._tick("replay", t0)
+        return packed
+
+    def _decide(self, s: _Sides, threshold: float, ordered: bool,
+                w: torch.Tensor) -> List[Tuple[bool, int, int, int, int]]:
+        """Every pair of ``s`` decided into ``w`` [rows, cols], per strand:
+
+          gate_class_block: gate + compaction + class sort
+          tier-0 pass x class: match counts + decisions of the pairs that fit
+          tier_partition: cheap-reject + M-tier routing of the rest
+          score pass x (class, tier): the remaining decisions
+
+        Returns the host-rescore jobs (rev, a, b, row, col): borderline
+        variance and match-count overflow."""
+        sk = self.sk
+        dev = self.device
+        a = s.row_ids.shape[0]
+        c = s.col_ids.shape[0]
+        tab = self._bv_table(threshold)
+        group_rows = self._groups_dev[s.row_ids]
+        group_cols = self._groups_dev[s.col_ids]
+        bvc_cols = sk.bvc[s.col_tab]
         if ordered:
             order_rows = torch.arange(a, device=dev)
-            order_cols = torch.arange(c, device=dev)
+            order_cols = torch.from_numpy(s.col_pos.astype(np.int64)).to(dev)
         else:
             order_rows = torch.zeros(a, dtype=torch.int64, device=dev)
             order_cols = torch.ones(c, dtype=torch.int64, device=dev)
@@ -450,17 +645,16 @@ class BulkClusterEngine:
         t_lad = len(self.m_ladder)
         m0 = self.m_ladder[0]
 
-        w = torch.zeros((a, c), dtype=torch.int8, device=dev)
         host_jobs: List[Tuple[bool, int, int, int, int]] = []
         strands = [False] if self.p.is_rna else [False, True]
         for rev in strands:
             t0 = time.perf_counter()
-            bvp_cols = (sk.rev_bvp if rev else sk.bvp)[d_col_ids]
+            bvp_cols = (sk.rev_bvp if rev else sk.bvp)[s.col_tab]
             rows, cols, cls_counts = gate_class_block(
-                bvp_rows, bvc_rows, order_rows, group_rows,
+                s.bvp_rows, s.bvc_rows, order_rows, group_rows,
                 bvp_cols, bvc_cols, order_cols, group_cols, tab,
-                self._cache[rev], self.cache_n, d_row_ids, d_col_ids, w,
-                1 if rev else 2, sk.nk, self._bounds_dev)
+                self._cache[rev], self.cache_n, s.row_ids, s.col_ids, w,
+                1 if rev else 2, self.nk, self._bounds_dev)
             t0 = self._tick("gate", t0)
             if rows.shape[0] == 0:
                 continue
@@ -469,17 +663,17 @@ class BulkClusterEngine:
             starts = np.cumsum([0] + cls_counts)
             first = [self._score_range(
                 rows[starts[i]:starts[i + 1]], cols[starts[i]:starts[i + 1]],
-                i, COUNT_CHUNKS[i], m0, d_row_ids, d_col_ids, rev, w, consts)
+                i, COUNT_CHUNKS[i], m0, s, rev, w, consts)
                 for i in range(self.n_classes) if cls_counts[i]]
             borders = [(rows, cols, torch.cat([b for b, _ in first]))]
             cnt = torch.cat([t for _, t in first])
-            ra = d_row_ids[rows]
-            rb = d_col_ids[cols]
+            ra = s.row_ids[rows]
+            rb = s.col_ids[cols]
             pair_cls = torch.repeat_interleave(
                 torch.arange(self.n_classes, device=dev),
                 torch.tensor(cls_counts, device=dev))
             order, counts = tier_partition(
-                cnt, pair_cls, torch.minimum(sk.lens[ra], sk.lens[rb]),
+                cnt, pair_cls, torch.minimum(self.lens[ra], self.lens[rb]),
                 self.score_min, self.m_ladder, self.p.kmer_size,
                 self.n_classes)
             srows, scols = rows[order], cols[order]
@@ -498,21 +692,100 @@ class BulkClusterEngine:
                         border, _ = self._score_range(
                             srows[sl], scols[sl], cls_i,
                             SCORE_CHUNKS[cls_i][tier_i],
-                            self.m_ladder[tier_i], d_row_ids, d_col_ids, rev,
-                            w, consts)
+                            self.m_ladder[tier_i], s, rev, w, consts)
                     borders.append((srows[sl], scols[sl], border))
             r_all, c_all, m_all = (torch.cat(x) for x in zip(*borders))
             sel = torch.nonzero(m_all).flatten()
             for rr, cc in zip(r_all[sel].tolist(), c_all[sel].tolist()):
-                host_jobs.append((rev, int(row_ids[rr]), int(col_ids[cc]),
+                host_jobs.append((rev, int(s.row_np[rr]), int(s.col_np[cc]),
                                   rr, cc))
             self._tick("score", t0)
+        return host_jobs
+
+    def _assemble_rows(self, row_ids: np.ndarray) -> _RowTables:
+        """The forward tables and 6-mer words of reads ``row_ids`` on every
+        rank: each rank contributes the rows it owns to ONE allgather.
+        Hashes travel as uint32 and widen to int64 on arrival, so PAD_HASH
+        still sorts after every real hash."""
+        sk = self.sk
+        a = len(row_ids)
+        owner = row_ids // self.n_rows
+        mine = np.nonzero(owner == self.mesh.rank)[0]
+        nk_max = int(self.nk_host[row_ids].max())
+        width = next(w for w in self._cls_widths if w >= nk_max)
+        li = torch.from_numpy((row_ids[mine] - self.row0).astype(np.int64)
+                              ).to(self.device)
+        parts = (sk.bvp[li].cpu().numpy(), sk.bvc[li, None].cpu().numpy(),
+                 sk.hs[li, :width].cpu().numpy().astype(np.uint32),
+                 sk.ps[li, :width].cpu().numpy())
+        rec = np.concatenate([np.ascontiguousarray(p).view(np.uint8)
+                              for p in parts], axis=1)
+        got = launch.allgather_to_hosts(rec)
+        full = np.empty_like(got)
+        full[np.argsort(owner, kind="stable")] = got
+        cuts = np.cumsum([0] + [p.shape[1] * 4 for p in parts])
+
+        def col(i, dtype):
+            return np.ascontiguousarray(full[:, cuts[i]:cuts[i + 1]]) \
+                .view(dtype).reshape(a, -1)
+
+        def dev(x):
+            return torch.from_numpy(x).to(self.device)
+
+        return _RowTables(dev(col(0, np.int32)),
+                          dev(col(1, np.int32)[:, 0].copy()),
+                          dev(col(2, np.uint32).astype(np.int64)),
+                          dev(col(3, np.int32)), self._cls_widths)
+
+    def _wave_mesh(self, row_ids: np.ndarray, col_ids: np.ndarray,
+                   threshold: float, ordered: bool,
+                   tables: Optional[_RowTables]) -> np.ndarray:
+        """``_wave`` on a mesh: this rank decides the columns it owns, the
+        replay runs on every rank from the allgathered decisions.  The
+        collectives do not depend on this rank's share of the pairs."""
+        dev = self.device
+        a = len(row_ids)
         t0 = time.perf_counter()
+        if tables is None:
+            tables = self._assemble_rows(row_ids)
+            t0 = self._tick("rows", t0)
+        owner = col_ids // self.n_rows
+        col_pos = np.nonzero(owner == self.mesh.rank)[0]
+        own = col_ids[col_pos]
+        w = torch.zeros((a, len(own)), dtype=torch.int8, device=dev)
+        host_jobs = []
+        if len(own):
+            d_own = torch.from_numpy(own.astype(np.int64)).to(dev)
+            d_rows = torch.from_numpy(row_ids.astype(np.int64)).to(dev)
+            s = _Sides(row_ids, own, col_pos, d_rows, d_own,
+                       torch.arange(a, device=dev), d_own - self.row0,
+                       tables.bvp, tables.bvc, tables)
+            host_jobs = self._decide(s, threshold, ordered, w)
+        t0 = time.perf_counter()
+        if self.seqs is None:
+            # fetch the rescores' reads that other ranks own: the union of
+            # every rank's needs, so that all ranks make the same exchange
+            need = sorted({i for _rev, ra, rb, _r, _c in host_jobs
+                           for i in (ra, rb)} - self._local_seqs.keys())
+            self.n_remote_reads += len(need)
+            union = sorted(set().union(*launch.allgather_objects(need)))
+            if union:
+                self._ensure_seqs(union)
         if host_jobs:
             self._patch_host(w, host_jobs)
-            t0 = self._tick("rescore", t0)
-        replay = greedy_owner(w, a) if ordered else absorb_rest(w)
-        packed = replay.cpu().numpy()
+        t0 = self._tick("rescore", t0)
+        order = np.argsort(owner, kind="stable")
+        if ordered:
+            got = launch.allgather_to_hosts(w.T.contiguous().cpu().numpy())
+            full = np.empty((len(col_ids), a), np.int8)
+            full[order] = got
+            replay = greedy_owner(torch.from_numpy(full.T.copy()).to(dev), a)
+            packed = replay.cpu().numpy()
+        else:
+            mine = absorb_rest(w).cpu().numpy() if len(own) \
+                else np.zeros(0, np.int32)
+            packed = np.empty(len(col_ids), np.int32)
+            packed[order] = launch.allgather_to_hosts(mine)
         self._tick("replay", t0)
         return packed
 
@@ -554,15 +827,24 @@ class BulkClusterEngine:
                 metrics.print_progress(m - len(pool), m)
             blk = pool[:k]
             nb = len(blk)
+            tables = None
+            if self.mesh is not None:
+                t0 = time.perf_counter()
+                tables = self._assemble_rows(ids[blk])
+                self._tick("rows", t0)
             packed = self._wave(ids[blk], ids[blk], threshold,
-                                ordered=True)[:nb]
+                                ordered=True, tables=tables)[:nb]
             o = packed >> 1
             owner[blk] = blk[o]
             revf[blk] = (packed & 1).astype(bool)
-            seeds = blk[o == np.arange(nb)]
+            is_seed = o == np.arange(nb)
+            seeds = blk[is_seed]
             rest = pool[k:]
             if len(rest) == 0:
                 break
+            if tables is not None:
+                # the seeds' tables are rows of the block's
+                tables = tables.take(np.nonzero(is_seed)[0])
             # all true seeds of this block sweep the remaining pool in
             # bounded column tiles (the first-claim absorb decision is
             # per-column, so tiling is exact)
@@ -570,7 +852,7 @@ class BulkClusterEngine:
             for t0_col in range(0, len(rest), self.sweep_cpad):
                 tile = rest[t0_col:t0_col + self.sweep_cpad]
                 pk = self._wave(ids[seeds], ids[tile], threshold,
-                                ordered=False)[:len(tile)]
+                                ordered=False, tables=tables)[:len(tile)]
                 won = pk >= 0
                 owner[tile[won]] = seeds[(pk[won] >> 1)]
                 revf[tile[won]] = (pk[won] & 1).astype(bool)
@@ -589,6 +871,9 @@ class BulkClusterEngine:
     def cluster(self) -> List[Cluster]:
         p = self.p
         ck = self.checkpoint
+        # on a mesh only rank 0 writes the manifest; every rank reads it
+        # before any rank goes on (the barrier), so all resume alike
+        record = ck.record if ck is not None and self.is_writer else None
         schedule = list(bv_threshold_schedule(p))
         phases_done = 0
         clusters: List[Cluster] = []
@@ -596,6 +881,8 @@ class BulkClusterEngine:
             resume = ck.load()
             if resume is not None:
                 phases_done, clusters = resume
+            if self.mesh is not None:
+                launch.barrier()
 
         if phases_done == 0:
             order = np.arange(self.n)
@@ -608,8 +895,8 @@ class BulkClusterEngine:
                                            p.repr_percentile)
                 clusters.append(Cluster(main, cseqs))
             phases_done = 1
-            if ck is not None:
-                ck.record(phases_done, clusters)
+            if record is not None:
+                record(phases_done, clusters)
 
         t0 = time.time()
         for round_i, threshold in enumerate(schedule):
@@ -630,8 +917,8 @@ class BulkClusterEngine:
                 tmp.append(merged)
             clusters = tmp
             phases_done = round_i + 2
-            if ck is not None:
-                ck.record(phases_done, clusters)
+            if record is not None:
+                record(phases_done, clusters)
         self.phase_times["merge"] = time.time() - t0
         return clusters
 
@@ -640,7 +927,9 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
                        progress: bool = False,
                        groups: Optional[np.ndarray] = None,
                        checkpoint_dir: Optional[str] = None,
-                       device="cuda") -> List[Cluster]:
+                       device="cuda",
+                       mesh: Optional[launch.DataMesh] = None
+                       ) -> List[Cluster]:
     """Engine entry point for pipeline.run_cluster.
 
     ``groups``: optional per-read group ids.  Reads in different groups are
@@ -649,6 +938,9 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
     at once (main.cpp:280-323).  Output order matches the reference's
     per-group emission because group member positions are contiguous and
     clusters emit in seed order.
+
+    ``mesh``: decide over the ranks of a parallel.launch.DataMesh, every
+    rank calling this with the same reads; each returns the same clusters.
 
     Phase times and the host-rescore count are added to
     ``utils.metrics.GLOBAL`` (stages ``cluster.greedy``/``cluster.merge``,
@@ -665,7 +957,8 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
                 mem = [CSeq(int(idx[s.seq_id]), s.rev) for s in c.seqs]
                 out.append(Cluster(main, mem))
         return out
-    engine = BulkClusterEngine(seqs, params, groups=groups, device=device)
+    engine = BulkClusterEngine(seqs, params, groups=groups, device=device,
+                               mesh=mesh)
     engine.progress = progress
     if checkpoint_dir is not None:
         # phase-granular resume (utils/checkpoint.py ClusterCheckpoint);
@@ -681,8 +974,14 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
         key = params_key(params=dataclasses.asdict(params), n=len(seqs),
                          digest=h.hexdigest())
         engine.checkpoint = ClusterCheckpoint(checkpoint_dir, key)
+    return run_engine(engine)
+
+
+def run_engine(engine: BulkClusterEngine) -> List[Cluster]:
+    """``engine.cluster()``, then its checkpoint finalized (by the writer)
+    and its phase times and counters added to ``utils.metrics.GLOBAL``."""
     out = engine.cluster()
-    if engine.checkpoint is not None:
+    if engine.checkpoint is not None and engine.is_writer:
         # the returned clusters become the stage artifact immediately; the
         # manifest's job (surviving a crash mid-stage) is done
         engine.checkpoint.finalize()
@@ -690,4 +989,5 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
         metrics.GLOBAL.stages["cluster." + name] = \
             metrics.GLOBAL.stages.get("cluster." + name, 0.0) + secs
     metrics.GLOBAL.add("cluster.host_rescores", engine.n_oracle_fallbacks)
+    metrics.GLOBAL.add("cluster.remote_reads", engine.n_remote_reads)
     return out

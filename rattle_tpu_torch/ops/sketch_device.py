@@ -123,8 +123,11 @@ def _revcomp_codes_batch(codes: torch.Tensor, lens: torch.Tensor
 
 def build_device_sketch(seqs: List[str], kmer_size: int, both_strands: bool,
                         kmax: Optional[int] = None, n_pad_to: int = 256,
-                        device="cuda") -> DeviceSketch:
-    """Build all tables on ``device``; one h2d transfer of the code matrix."""
+                        device="cuda", n_pad: Optional[int] = None
+                        ) -> DeviceSketch:
+    """Build all tables on ``device``; one h2d transfer of the code matrix.
+    The tables have ``n_pad`` rows (default: the read count rounded up to
+    ``n_pad_to``); pad rows have nk = lens = 0 and no k-mers."""
     dev = resolve(device)
     n = len(seqs)
     lens_host = np.array([len(s) for s in seqs], dtype=np.int32)
@@ -135,7 +138,8 @@ def build_device_sketch(seqs: List[str], kmer_size: int, both_strands: bool,
             f"read {bad} too short (len {lens_host[bad]}) for k={kmer_size}")
     if kmax is None:
         kmax = _round_up(int(nk_host.max()), 128)
-    n_pad = _round_up(n, n_pad_to)
+    if n_pad is None:
+        n_pad = _round_up(n, n_pad_to)
     l_pad = kmax + kmer_size
 
     nk_p = np.zeros(n_pad, np.int32)
@@ -154,6 +158,29 @@ def build_device_sketch(seqs: List[str], kmer_size: int, both_strands: bool,
         _, sk.rev_hs, sk.rev_ps, sk.rev_bvp, _ = _device_tables(
             rc, d_nk, d_lens, kmer_size, kmax)
     return sk
+
+
+def build_device_sketch_sharded(local_seqs: List[str],
+                                global_lens: np.ndarray, start: int,
+                                rows: int, kmer_size: int,
+                                both_strands: bool,
+                                device="cuda") -> DeviceSketch:
+    """One rank's rows of the sketch of a length-sorted read set.
+
+    ``local_seqs`` are the reads of global rows [start, start + len), the
+    rank's contiguous slice; the tables hold ``rows`` rows (the slice, then
+    pad rows).  ``kmax`` is the one the full build takes over all reads,
+    from ``global_lens``, which every rank knows, so the ranks' tables put
+    together are the full build's, row for row.  No rank builds or holds
+    another rank's rows."""
+    if len(local_seqs) > rows:
+        raise ValueError(f"{len(local_seqs)} reads for {rows} rows")
+    own = np.asarray(global_lens[start:start + len(local_seqs)])
+    if not np.array_equal(own, [len(s) for s in local_seqs]):
+        raise ValueError(f"the reads are not global rows {start}..")
+    kmax = _round_up(int(np.max(global_lens)) - kmer_size, 128)
+    return build_device_sketch(list(local_seqs), kmer_size, both_strands,
+                               kmax=kmax, device=device, n_pad=rows)
 
 
 def sketch_from_numpy(hbp, hs, ps, plane, nk, lens, bvc, rev_hs=None,

@@ -11,8 +11,15 @@
 ``cluster``, ``correct`` and ``polish`` run on ``--device cuda`` (the
 default; it raises without a card) or ``--device cpu`` (the kernels' plain
 versions).  ``--poa-backend device`` (the default) aligns packs on the
-device pack engine; ``host`` runs the Python POA oracle instead.  The
-multi-device options are not ported yet.
+device pack engine; ``host`` runs the Python POA oracle instead.
+
+Multi-process runs follow the JAX package's launch contract: with
+RATTLE_COORDINATOR (host:port of rank 0), RATTLE_NUM_PROCESSES and
+RATTLE_PROCESS_ID set, every rank joins one gloo process group before
+anything else, runs on ``cuda:{rank % cards}`` (or the CPU), and the cluster
+engine decides over all ranks (``--mesh-devices``; ``--shard-input`` makes
+each rank parse only its slice of the reads).  Every rank computes the same
+outputs; only rank 0 writes them, in every mode.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ import os
 import sys
 
 from ..config import ClusterParams, CorrectParams, InputParams
-from ..device import DEVICES, resolve
+from ..device import DEVICES
 from ..io import fastx, hpsio
+from ..parallel import launch
 from ..pipeline import stages
 
 
@@ -35,24 +43,44 @@ def _add_common_input(p):
                    help="labels for the files in order of entry")
 
 
-def _engine(args):
+def _engine(args, dev, mesh):
     if args.oracle:
         from ..cluster.oracle import cluster_reads
         return cluster_reads
     from ..cluster.bulk import cluster_reads_bulk
-    kw = {"device": resolve(args.device)}
+    kw = {"device": dev, "mesh": mesh}
     if getattr(args, "checkpoint_dir", None) is not None:
         kw["checkpoint_dir"] = args.checkpoint_dir
     return functools.partial(cluster_reads_bulk, **kw)
 
 
-def _pack_runner(args):
-    """The correct/polish POA executor: the pack engine on ``--device``, or
+def _mesh(args, dev):
+    """The DataMesh the cluster engine on ``dev`` decides over (None: every
+    rank runs the whole engine, or the oracle runs on no device).
+    ``--mesh-devices`` 0 spans every rank, 1 keeps each rank unsharded;
+    ``--shard-input`` needs every rank.  Raises ValueError for any other
+    count."""
+    world = launch.process_count()
+    n = getattr(args, "mesh_devices", 0)
+    if n not in (0, 1, world):
+        raise ValueError(f"--mesh-devices {n} is neither 0, 1 nor the world "
+                         f"size {world} (one device a rank)")
+    shard = getattr(args, "shard_input", False)
+    if shard and n == 1 and world > 1:
+        raise ValueError(f"--shard-input needs the engine over all {world} "
+                         "ranks, not --mesh-devices 1")
+    if dev is not None and (shard or (n or world) > 1):
+        return launch.data_mesh(dev)
+    return None
+
+
+def _pack_runner(args, dev):
+    """The correct/polish POA executor: the pack engine on ``dev``, or
     None (the Python POA oracle) for ``--poa-backend host``."""
     if args.poa_backend == "host":
         return None
     from ..correct.runner import make_pack_runner
-    return make_pack_runner(resolve(args.device))
+    return make_pack_runner(dev)
 
 
 def _report_poa(runner) -> None:
@@ -93,6 +121,11 @@ def _cluster_params(args, kmer_size, t_s, t_v) -> ClusterParams:
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    # multi-process launch contract: join the process group before anything
+    # else; every rank parses the same inputs (global-index contract of
+    # main.cpp:27,47) and computes identical outputs; only rank 0 writes
+    distributed = launch.init_distributed()
+    is_writer = launch.process_index() == 0
     top = argparse.ArgumentParser(prog="rattle-tpu-torch")
     sub = top.add_subparsers(dest="mode", required=True)
 
@@ -123,7 +156,17 @@ def main(argv=None):
                     "engine")
     pc.add_argument("--checkpoint-dir", default=None,
                     help="phase-granular resume manifest dir (greedy pass + "
-                    "each merge round; device engine only)")
+                    "each merge round; device engine only; on several "
+                    "ranks rank 0 writes it and every rank reads it)")
+    pc.add_argument("--mesh-devices", type=int, default=0,
+                    help="ranks the engine's reads axis spans: 0 = every "
+                    "rank of the process group, 1 = each rank runs the "
+                    "whole engine (one device a rank)")
+    pc.add_argument("--shard-input", action="store_true",
+                    help="multi-process: each rank parses only the metadata "
+                    "of all inputs plus the content of its contiguous slice "
+                    "of the length-sorted reads (incompatible with --iso/"
+                    "--oracle/--checkpoint-dir)")
 
     pco = sub.add_parser("correct")
     _add_common_input(pco)
@@ -167,43 +210,69 @@ def main(argv=None):
     args = top.parse_args(argv)
     mode = args.mode
     labels = [l for l in args.label.split(",") if l]
+    dev = None
+    on_device = (mode in ("cluster", "polish") and not args.oracle) or \
+        (mode in ("correct", "polish") and args.poa_backend != "host")
+    if on_device:
+        dev = launch.rank_device(args.device)
+        if distributed:
+            print(f"rank {launch.process_index()} of "
+                  f"{launch.process_count()} on {dev}", file=sys.stderr)
 
     if mode == "cluster":
         if args.kmer_size > 16 or args.iso_kmer_size > 16:
             print("\nError: maximum kmer size = 16", file=sys.stderr)
             return 1
         print(f"RNA mode: {str(args.rna).lower()}", file=sys.stderr)
-        engine = _engine(args)
+        if args.shard_input and (args.iso or args.oracle
+                                 or args.checkpoint_dir):
+            print("--shard-input is incompatible with --iso/--oracle/"
+                  "--checkpoint-dir", file=sys.stderr)
+            return 1
+        try:
+            mesh = _mesh(args, dev)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
         inp = InputParams(raw=args.raw, lower_len=args.lower_length,
                           upper_len=args.upper_length)
-        reads = stages.load_cluster_inputs(args.input, args.label, inp)
-        print(f"Reads: {len(reads)}")
         gp = _cluster_params(args, args.kmer_size, args.score_threshold,
                              args.max_variance)
-        ip = _cluster_params(args, args.iso_kmer_size,
-                             args.iso_score_threshold, args.iso_max_variance)
-        clusters = stages.run_cluster(reads, gp, iso=args.iso, iso_params=ip,
-                                      engine=engine, verbose=args.verbose)
-        kind = "isoform" if args.iso else "gene"
+        if args.shard_input:
+            clusters = stages.run_cluster_sharded(
+                args.input, args.label, inp, gp, mesh, verbose=args.verbose)
+            kind = "gene"
+        else:
+            reads = stages.load_cluster_inputs(args.input, args.label, inp)
+            print(f"Reads: {len(reads)}")
+            ip = _cluster_params(args, args.iso_kmer_size,
+                                 args.iso_score_threshold,
+                                 args.iso_max_variance)
+            clusters = stages.run_cluster(
+                reads, gp, iso=args.iso, iso_params=ip,
+                engine=_engine(args, dev, mesh), verbose=args.verbose)
+            kind = "isoform" if args.iso else "gene"
         print(f"{kind} clustering done", file=sys.stderr)
         print(f"{len(clusters)} {kind} clusters found", file=sys.stderr)
-        hpsio.write_clusters(clusters,
-                             os.path.join(args.output, "clusters.out"))
+        if is_writer:
+            hpsio.write_clusters(clusters,
+                                 os.path.join(args.output, "clusters.out"))
         return 0
 
     if mode == "polish":
         from ..correct.polish import polish as run_polish
-        runner = _pack_runner(args)
-        engine = _engine(args)
+        runner = _pack_runner(args, dev)
+        engine = _engine(args, dev, _mesh(args, dev))
         reads = fastx.read_fastq_plain(args.input)
         consensi, summary_rows = run_polish(
             reads, args.rna, labels, cluster_engine=engine,
             pack_runner=runner)
-        if args.summary:
+        if args.summary and is_writer:
             fastx.write_polish_summary(
                 summary_rows, os.path.join(args.output, "polish_summary.tsv"))
-        fastx.write_fastq(consensi,
-                          os.path.join(args.output, "transcriptome.fq"))
+        if is_writer:
+            fastx.write_fastq(consensi,
+                              os.path.join(args.output, "transcriptome.fq"))
         _report_poa(runner)
         print("Done", file=sys.stderr)
         return 0
@@ -213,19 +282,22 @@ def main(argv=None):
     clusters = hpsio.read_clusters(args.clusters)
     if mode == "correct":
         from ..correct.driver import correct_reads
-        runner = _pack_runner(args)
+        runner = _pack_runner(args, dev)
         cp = CorrectParams(min_occ=args.min_occ, gap_occ=args.gap_occ,
                            split=args.split, min_reads=args.min_reads)
+        # every rank corrects every pack; only rank 0 keeps the manifest
         res = correct_reads(clusters, reads, cp, labels=labels,
                             pack_runner=runner,
-                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_dir=args.checkpoint_dir
+                            if is_writer else None,
                             verbose=args.verbose)
-        fastx.write_fastq(res.corrected,
-                          os.path.join(args.output, "corrected.fq"))
-        fastx.write_fastq(res.uncorrected,
-                          os.path.join(args.output, "uncorrected.fq"))
-        fastx.write_fastq(res.consensi,
-                          os.path.join(args.output, "consensi.fq"))
+        if is_writer:
+            fastx.write_fastq(res.corrected,
+                              os.path.join(args.output, "corrected.fq"))
+            fastx.write_fastq(res.uncorrected,
+                              os.path.join(args.output, "uncorrected.fq"))
+            fastx.write_fastq(res.consensi,
+                              os.path.join(args.output, "consensi.fq"))
         if res.checkpoint is not None:
             res.checkpoint.finalize()  # stage artifacts are now the checkpoint
         _report_poa(runner)
@@ -239,8 +311,9 @@ def main(argv=None):
             devnull = os.open(os.devnull, os.O_WRONLY)
             os.dup2(devnull, sys.stdout.fileno())
         return 0
-    stages.extract_clusters(reads, clusters, args.output,
-                            min_reads=args.min_reads, fastq=args.fastq)
+    if is_writer:
+        stages.extract_clusters(reads, clusters, args.output,
+                                min_reads=args.min_reads, fastq=args.fastq)
     return 0
 
 

@@ -1,4 +1,4 @@
-# Copied from rattle_tpu/pipeline/stages.py, minus run_cluster_sharded.
+# Copied from rattle_tpu/pipeline/stages.py (run_cluster_sharded on a DataMesh).
 """Stage bodies shared by the CLI and tests.
 
 Mirrors the mode bodies of reference main.cpp:
@@ -25,6 +25,42 @@ def load_cluster_inputs(input_csv: str, label_csv: str, inp: InputParams) -> Rea
     reads = read_multiple_inputs_cluster(files, labels, inp.raw, inp.lower_len, inp.upper_len)
     sort_read_set(reads)
     return reads
+
+
+def run_cluster_sharded(input_csv: str, label_csv: str, inp: InputParams,
+                        gene_params: ClusterParams, mesh,
+                        verbose: bool = False) -> ClusterSet:
+    """Per-rank-sharded cluster mode (SURVEY §8): each rank of ``mesh`` (a
+    parallel.launch.DataMesh) parses only the metadata of all inputs (a
+    streaming length scan) plus the full content of ITS contiguous slice of
+    the length-sorted read list, and builds the sketch rows of that slice
+    only.  Output is byte-identical to the unsharded path on every rank.
+
+    The global-index contract (main.cpp:27,47) is preserved: original
+    record indices are assigned during the metadata scan, before any
+    sharding, so every rank agrees on them with no communication."""
+    import numpy as np
+    from ..cluster.bulk import BulkClusterEngine, run_engine, shard_plan
+    from ..io.fastx import read_cluster_selection, scan_multiple_inputs_cluster
+
+    files = [f for f in input_csv.split(",") if f]
+    labels = [l for l in label_csv.split(",") if l] if label_csv else []
+    lengths, anns = scan_multiple_inputs_cluster(
+        files, labels, inp.raw, inp.lower_len, inp.upper_len)
+    order = np.argsort(-lengths, kind="stable")
+    sorted_lens = lengths[order]
+    start, end, _n_pad = shard_plan(mesh.world, mesh.rank, len(order))
+    wanted = order[start:end]
+    local = read_cluster_selection(files, labels, inp.raw, inp.lower_len,
+                                   inp.upper_len, wanted)
+    local_seqs = [local[int(p)].seq for p in wanted]
+    engine = BulkClusterEngine(local_seqs, gene_params, mesh=mesh,
+                               shard=(sorted_lens, start))
+    engine.progress = verbose
+    clusters = run_engine(engine)
+    # id translation needs only each sorted read's original index
+    stubs = [Read("", "", str(int(anns[p])), "") for p in order]
+    return run_cluster(stubs, gene_params, engine=lambda s, p: clusters)
 
 
 def run_cluster(
