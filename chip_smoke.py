@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card:
     python3 chip_smoke.py
 
 Phases, each ending in one summary line:
-  1. device and build: the card's name and power limit; the three CUDA
+  1. device and build: the card's name and power limit; the six CUDA
      kernels and the tensor-core rate probe (csrc/mma_rate.cu) compiled with
      nvcc from rattle_tpu_torch/csrc (all at once);
   2. bv_common against its plain version, exactly, at the main path's
@@ -21,6 +21,14 @@ Phases, each ending in one summary line:
      lis_filter's launches and device time by tier and by (M, B, bound
      bucket)), on the adversarial lists of
      rattle_tpu_torch/utils/synth.lis_cases and at ragged B (1, 33, 4097);
+ 3b. the score path's kernels against their plain versions (the parent's
+     eager chain), every output exact: join_expand and score_decide on the
+     largest chunk of each (class width, M tier) of that same first wave,
+     join_expand on the adversarial tables of utils/synth.join_cases (one
+     hash over whole rows, nk = 1, unequal widths, k = 16 hashes >= 2^31,
+     a class-3 width of 6144, rows wider than shared memory), greedy_owner
+     on the wave's block win matrix and on random ones at K = 4,096; lone
+     calls timed beside the parent's chain and each kernel's bound;
   4. poa_align against its plain version, exactly (best score, move count
      and the packed moves), on read steps captured from pack groups at
      W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
@@ -31,9 +39,13 @@ Phases, each ending in one summary line:
   5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) on 8,192 reads; in each
-     run every read must land in one cluster and both cluster kernels must
+     run every read must land in one cluster and every cluster kernel must
      have run, and lis_filter's launches are split by (tier M, chunk B)
-     (``kernels.lis_filter.shapes``);
+     (``kernels.lis_filter.shapes``); each run again under torch.profiler
+     for its CUDA launch calls, device busy time and idle share; and each
+     again with the score path's three wrappers pointed at their plain
+     versions (a switch of this script), whose clusters.out must equal the
+     kernel run's byte for byte;
   6. the correct path: ``correct`` on the ``--rna`` run's reads and
      clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
      three widths), then ``polish --rna --summary`` on its consensi.fq;
@@ -61,8 +73,9 @@ Phases, each ending in one summary line:
      seconds in collectives and its launch counts.
 
 Launch counts are set to 0 just before each CLI run and read just after it
-(in each rank for phase 8); the kernels line reports bv_common and lis_filter from the ``--rna``
-``cluster`` run and poa_align from the ``correct`` run.  With
+(in each rank for phase 8); the kernels line reports the five cluster
+kernels from the ``--rna`` ``cluster`` run and poa_align from the
+``correct`` run.  With
 ``--kernels-only`` the script stops after phase 4 (a quick build-and-compare
 of the kernels) and prints no final ``ok`` line.
 
@@ -244,14 +257,49 @@ def _match_lists(b: int, m: int, dev, seed: int):
     return t, bound
 
 
+class _ScoreCapture:
+    """Pass-throughs for cluster/bulk.py's join_expand, score_decide and
+    greedy_owner that keep, for each (class width, m_cap), the inputs of
+    the largest chunk of the join and of the decision that follows it (the
+    win matrix and score cache as they were before it), and every block
+    replay's win matrix.  The engine's own calls run unchanged."""
+
+    def __init__(self):
+        self.join, self.decide, self.greedy = {}, {}, []
+        self._take = None
+
+    def join_expand(self, *args, total=None, bound=None):
+        from rattle_tpu_torch.ops import kernels
+        key = (args[6].shape[1], args[11])
+        self._take = None
+        if args[0].shape[0] > self.join.get(key, (0, None))[0]:
+            kept = [a.clone() if i < 2 else a for i, a in enumerate(args)]
+            self.join[key] = (args[0].shape[0], kept)
+            self._take = key
+        return kernels.join_expand(*args, total=total, bound=bound)
+
+    def score_decide(self, *args, border=None):
+        from rattle_tpu_torch.ops import kernels
+        if self._take is not None:
+            self.decide[self._take] = [
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        return kernels.score_decide(*args, border=border)
+
+    def greedy_owner(self, w, n_valid):
+        from rattle_tpu_torch.ops import kernels
+        self.greedy.append((w.clone(), n_valid))
+        return kernels.greedy_owner(w, n_valid)
+
+
 def _capture_lists(dev):
     """The largest chunk of each tier that the main path's first decision
     wave hands lis_filter: the engine on utils/synth's main-path reads in
     the CLI's order (stable length sort), ``cluster --rna`` parameters, one
     block wave, run under the profiler, whose split of lis_filter's launches
-    and device time by tier and by (M, B, bound bucket) it prints.  Returns
-    {M: [p1, p2, valid, bound]}."""
-    from rattle_tpu_torch.cluster.bulk import BulkClusterEngine
+    and device time by tier and by (M, B, bound bucket) it prints.  The same
+    wave's score-path inputs are kept by a _ScoreCapture.  Returns ({M: [p1,
+    p2, valid, bound]}, the capture)."""
+    from rattle_tpu_torch.cluster import bulk
     from rattle_tpu_torch.config import ClusterParams
     from rattle_tpu_torch.pipeline.profile_cluster import (lis_split,
                                                            print_split)
@@ -260,13 +308,15 @@ def _capture_lists(dev):
     reads = synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED)
     seqs = sorted((s for _n, s, _f in reads), key=len, reverse=True)
     params = ClusterParams(is_rna=True)
-    eng = BulkClusterEngine(seqs, params, device=dev)
+    eng = bulk.BulkClusterEngine(seqs, params, device=dev)
     ids = np.arange(eng.k_block)
-    split, _prof, kept = lis_split(
-        lambda: eng._wave(ids, ids, params.bv_threshold, ordered=True),
-        keep=True)
+    cap = _ScoreCapture()
+    with _bulk_names(**{n: getattr(cap, n) for n in SCORE_PATH}):
+        split, _prof, kept = lis_split(
+            lambda: eng._wave(ids, ids, params.bv_threshold, ordered=True),
+            keep=True)
     print_split("first wave (profiled)", split)
-    return kept
+    return kept, cap
 
 
 def _lis_check(what: str, args, bound) -> float:
@@ -337,7 +387,8 @@ def phase_lis(dev):
         b = SCORE_CHUNKS[0][tier]
         args, bound = _match_lists(b, m, dev, seed=m)
         rows.append(_lis_row("synthetic", args, bound))
-    for m, (p1, p2, valid, bound) in _capture_lists(dev).items():
+    kept, cap = _capture_lists(dev)
+    for m, (p1, p2, valid, bound) in kept.items():
         rows.append(_lis_row("main path", [p1, p2, valid], bound))
     names = []
     for b, m in LIS_ADVERSARIAL:
@@ -354,7 +405,185 @@ def phase_lis(dev):
           f"(M = {[r['shape'][1] for r in rows[3:]]}), on the adversarial "
           f"lists {sorted(set(names))} at (B, M) {list(LIS_ADVERSARIAL)} and "
           f"at ragged (B, M) {list(LIS_RAGGED)}")
-    return rows
+    return rows, cap
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _join_bound(args, m_cap: int):
+    """(bound ms, "bytes" or "operations") of one join_expand call on these
+    tables: the bytes of both table rows of each pair (hash 8 + position 4
+    bytes an entry up to its nk), the pair's indices and ids and two nk
+    reads, the match lists written (9 bytes a slot) and total; the
+    operations of the searches (2 log2(na + 1) comparisons a b entry) and
+    of the sort of each pair's kept matches."""
+    rows, cols, row_ids, col_ids = args[:4]
+    wa, wb, nk = args[6].shape[1], args[8].shape[1], args[10]
+    na = nk[row_ids[rows]].clamp(max=wa).double()
+    nb = nk[col_ids[cols]].clamp(max=wb).double()
+    b = rows.shape[0]
+    nbytes = float(12 * (na + nb).sum()) + b * (56 + 9 * m_cap + 4) + 4
+    ops = float((2 * nb * torch.ceil(torch.log2(na + 1))).sum())
+    lg = np.log2(max(2, _pow2(m_cap)))
+    ops += b * _pow2(m_cap) / 2 * lg * (lg + 1) / 2
+    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_INT32
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _join_check(what: str, args, m_cap: int):
+    """The kernel against the plain version on one chunk: p1, p2, total,
+    valid and bound all exact (overflow rows included: both keep the first
+    m_cap matches in b order).  Returns the kernel's outputs."""
+    from rattle_tpu_torch.ops import kernels
+    got = kernels.join_expand(*args, m_cap)
+    ref = kernels.join_expand_plain(*args, m_cap)
+    torch.cuda.synchronize()
+    for name, g_, r_ in zip(("p1", "p2", "total", "valid", "bound"), got,
+                            ref):
+        check(torch.equal(g_, r_), f"join_expand {what}: {name} differs")
+    return got
+
+
+def _decide_check(what: str, args):
+    """score_decide against its plain version from the same state: border,
+    the win matrix and the score cache exact.  Returns (border, wins,
+    decided)."""
+    from rattle_tpu_torch.ops import kernels
+    state = [[a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+             for _ in range(2)]
+    got = kernels.score_decide(*state[0])
+    ref = kernels.score_decide_plain(*state[1])
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"score_decide {what}: border differs")
+    check(torch.equal(state[0][12], state[1][12]),
+          f"score_decide {what}: w differs")
+    cache = state[0][13]
+    if cache is not None:
+        check(torch.equal(cache, state[1][13]),
+              f"score_decide {what}: score cache differs")
+    wins = int((state[0][12] != args[12]).sum())
+    decided = int((cache != args[13]).sum()) if cache is not None else 0
+    return got, wins, decided
+
+
+def _greedy_seed_bytes(w: np.ndarray, n_valid: int) -> int:
+    """Bytes of ``w`` the replay must read: for each seed row, its columns
+    after it below n_valid that are still unclaimed (a host replay)."""
+    k = w.shape[0]
+    owner = np.arange(k)
+    need = 0
+    for i in range(n_valid):
+        if owner[i] != i:
+            continue
+        free = np.nonzero(owner[i + 1:n_valid] == np.arange(i + 1, n_valid))
+        cols = free[0] + i + 1
+        need += len(cols)
+        owner[cols[w[i, cols] > 0]] = i
+    return need
+
+
+def _greedy_row(what: str, w: torch.Tensor, n_valid: int) -> dict:
+    from rattle_tpu_torch.ops import kernels
+    got = kernels.greedy_owner(w, n_valid)
+    ref = kernels.greedy_owner_plain(w, n_valid)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"greedy_owner {what}: owners differ")
+    ms = time_ms(lambda: kernels.greedy_owner(w, n_valid))
+    plain_ms = time_ms(lambda: kernels.greedy_owner_plain(w, n_valid), reps=3,
+                       warmup=1)
+    owner = (got >> 1).cpu().numpy()
+    seeds = int((owner[:n_valid] == np.arange(n_valid)).sum())
+    need = _greedy_seed_bytes(w.cpu().numpy(), n_valid)
+    nbytes = need + 4 * w.shape[0]
+    t_b, t_o = nbytes / PEAK_BYTES, need / PEAK_INT32
+    row = dict(matrix=what, shape=[w.shape[0], w.shape[0]], n_valid=n_valid,
+               seeds=seeds, absorbed=int(n_valid - seeds), ms=ms,
+               plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               max_abs_err=0)
+    print(f"  greedy_owner {what} K={w.shape[0]} n_valid={n_valid}: {seeds} "
+          f"seeds; kernel {ms:.4f} ms ({ms * 1e3 / max(seeds, 1):.3f} us a "
+          f"seed), parent's path (plain) {plain_ms:.2f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), exact")
+    return row
+
+
+# random block win matrices: (K, n_valid, win density)
+GREEDY_RANDOM = ((4096, 4096, 0.002), (4096, 3000, 0.0005))
+
+
+def phase_score_path(dev, cap):
+    """join_expand and score_decide against their plain versions (the
+    parent's eager chain) on the largest chunk of each (class width, M
+    tier) of the main path's first wave, join_expand on the adversarial
+    tables of utils/synth.join_cases, and greedy_owner on the wave's block
+    win matrix and on random ones at K = 4,096: every output exact."""
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.utils.synth import join_cases
+    joins, decides = [], []
+    for (wa, m_cap), (b, args) in sorted(cap.join.items()):
+        what = f"main path W={wa} M={m_cap}"
+        p1, p2, total, valid, _bd = _join_check(what, args[:11], m_cap)
+        ms = time_ms(lambda: kernels.join_expand(*args[:11], m_cap))
+        plain_ms = time_ms(lambda: kernels.join_expand_plain(*args[:11],
+                                                             m_cap), reps=5)
+        bound_ms, by = _join_bound(args[:11], m_cap)
+        over = int((total > m_cap).sum())
+        joins.append(dict(chunk=what, shape=[b, wa, args[8].shape[1], m_cap],
+                          matches=int(torch.clamp(total, max=m_cap).sum()),
+                          overflow_pairs=over, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound_ms, bound_by=by,
+                          max_abs_err=0))
+        print(f"  join_expand {what} B={b}: {joins[-1]['matches']} matches "
+              f"kept, {over} pairs over M; kernel {ms:.4f} ms, parent's path "
+              f"(gathers + eager join) {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.2f}% of the "
+              "bound, exact")
+        dargs = cap.decide.get((wa, m_cap))
+        if dargs is None:
+            continue
+        border, wins, decided = _decide_check(what, dargs)
+        live = [a.clone() if isinstance(a, torch.Tensor) else a
+                for a in dargs]
+        ms = time_ms(lambda: kernels.score_decide(*live))
+        plain_ms = time_ms(lambda: kernels.score_decide_plain(*live))
+        nbytes = b * 57 + 2 * wins + decided + 8
+        decides.append(dict(chunk=what, shape=[b], wins=wins,
+                            decided=decided, border=int(border.sum()), ms=ms,
+                            plain_ms=plain_ms, library_ms=None,
+                            bound_ms=nbytes / PEAK_BYTES * 1e3,
+                            bound_by="bytes", max_abs_err=0))
+        print(f"  score_decide {what} B={b}: {wins} wins, {decided} decided, "
+              f"{decides[-1]['border']} border; kernel {ms:.4f} ms, parent's "
+              f"path {plain_ms:.4f} ms, bound "
+              f"{decides[-1]['bound_ms']:.5f} ms (bytes), exact")
+    check(joins and decides, "phase 3b: the first wave captured no chunk")
+    names = []
+    for name, arrs, m_cap in join_cases():
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        total = _join_check(f"adversarial {name}", args, m_cap)[2]
+        names.append(f"{name} (W={args[6].shape[1]}/{args[8].shape[1]}, "
+                     f"M={m_cap}, totals {int(total.min())}-"
+                     f"{int(total.max())})")
+    print(f"  join_expand adversarial tables exact: {'; '.join(names)}")
+    greedy = [_greedy_row(f"main path block {i}", w, n)
+              for i, (w, n) in enumerate(cap.greedy)]
+    check(greedy, "phase 3b: the first wave made no block replay")
+    g = torch.Generator(device=dev).manual_seed(4096)
+    for k, n_valid, dens in GREEDY_RANDOM:
+        r = torch.rand((k, k), generator=g, device=dev)
+        w = torch.where(r < dens / 2, 1, torch.where(r < dens, 2, 0)).to(
+            torch.int8)
+        greedy.append(_greedy_row(f"random p={dens}", w, n_valid))
+    print("phase 3b score path: join_expand and score_decide exact against "
+          f"the parent's eager chain on {len(joins)} main-path chunks, "
+          f"join_expand on {len(names)} adversarial tables, greedy_owner on "
+          f"{len(cap.greedy)} main-path block(s) and {len(GREEDY_RANDOM)} "
+          "random K=4096 matrices")
+    return dict(join_expand=joins, score_decide=decides, greedy_owner=greedy)
 
 
 POA_CAPTURE_STEP = 12
@@ -531,7 +760,12 @@ def _cli(argv, capture: bool = False):
     return buf.getvalue()
 
 
-CLUSTER_KERNELS = ("bv_common", "lis_filter")
+# the kernels every cluster run launches; the last three are the score path
+CLUSTER_KERNELS = ("bv_common", "lis_filter", "join_expand", "score_decide",
+                   "greedy_owner")
+SCORE_PATH = CLUSTER_KERNELS[2:]
+# cudaLaunchKernel calls each 8,192-read cluster run should stay below
+LAUNCH_TARGETS = {"rna": 60_000, "cdna": 110_000}
 
 
 def _counted(argv):
@@ -554,9 +788,22 @@ def _host_rescores() -> int:
     return int(metrics.GLOBAL.counters.get("cluster.host_rescores", 0))
 
 
-def _main_run(label, reads, flags):
+@contextlib.contextmanager
+def _plain_score_path():
+    """cluster/bulk.py's score-path kernels pointed at their plain versions
+    (the parent's eager chain) for the duration of the block: a switch of
+    this script only, not of the package."""
+    from rattle_tpu_torch.ops import kernels
+    with _bulk_names(**{k: getattr(kernels, k + "_plain")
+                        for k in SCORE_PATH}):
+        yield
+
+
+def _main_run(label, reads, flags, plain: bool = False):
     """Cluster ``reads`` on cuda; every read must land in one cluster and
-    both kernels must have launched in this run."""
+    every cluster kernel must have launched in this run.  With ``plain``
+    the score path runs its plain versions (``_plain_score_path``), and
+    none of its three kernels may launch."""
     from rattle_tpu_torch.io import hpsio
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.utils import metrics
@@ -566,9 +813,13 @@ def _main_run(label, reads, flags):
     os.makedirs(out)
     write_fastq(reads, fq)
     torch.cuda.reset_peak_memory_stats()
-    wall, launches = _counted(["cluster", "-i", fq, "-o", out, *flags])
-    check(all(launches[k] for k in CLUSTER_KERNELS),
+    with _plain_score_path() if plain else contextlib.nullcontext():
+        wall, launches = _counted(["cluster", "-i", fq, "-o", out, *flags])
+    need = [k for k in CLUSTER_KERNELS if not (plain and k in SCORE_PATH)]
+    check(all(launches[k] for k in need),
           f"{label}: a kernel never ran: {launches}")
+    check(not plain or not any(launches[k] for k in SCORE_PATH),
+          f"{label}: a score-path kernel ran in the plain run: {launches}")
     clusters = hpsio.read_clusters(os.path.join(out, "clusters.out"))
     members = [s.seq_id for c in clusters for s in c.seqs]
     check(sorted(members) == list(range(len(reads))),
@@ -599,10 +850,41 @@ def _main_run(label, reads, flags):
     return res, fq, os.path.join(out, "clusters.out")
 
 
+def _api_launches(label, fq, flags) -> dict:
+    """The same cluster run again, under torch.profiler: its CUDA runtime
+    launch calls (cudaLaunchKernel and the like), device busy time and idle
+    share, beside the run's target."""
+    from rattle_tpu_torch.pipeline.profile_cluster import profiled_launches
+    out = os.path.join(WORK, f"{label}_profiled")
+    os.makedirs(out)
+    res = profiled_launches(lambda: _cli(["cluster", "-i", fq, "-o", out,
+                                          *flags]))
+    res["target"] = LAUNCH_TARGETS[label]
+    print(f"  {label}: {res['launch_calls']} CUDA launch calls "
+          f"({'below' if res['launch_calls'] < res['target'] else 'ABOVE'} "
+          f"the target {res['target']}; by call {res['by_call']}), device "
+          f"busy {res['device_busy_s']:.3f} s of {res['wall_s']:.3f} s "
+          f"profiled, idle share {res['idle_share']:.3f}")
+    return res
+
+
+def _plain_parity(label, reads, flags, clusters_out):
+    """``cluster`` again with the score path on its plain versions: its
+    clusters.out must equal the kernel run's byte for byte."""
+    res = _main_run(f"{label}_plain", reads, flags, plain=True)
+    _same_files(os.path.dirname(res[2]), os.path.dirname(clusters_out),
+                ("clusters.out",), f"{label} plain score path")
+    print(f"  {label}: clusters.out byte-identical with the score path on "
+          f"its plain versions ({res[0]['cluster_s']:.2f} s)")
+    return res[0]
+
+
 def phase_main_path():
     """``cluster --rna`` (the main path, then ``cluster_summary`` and
     ``extract_clusters`` on its output) and ``cluster`` in cDNA mode (both
-    strands), each on 8,192 reads with its own launch counts."""
+    strands), each on 8,192 reads with its own launch counts, then each
+    again under the profiler (CUDA launch calls) and with the score path on
+    its plain versions (clusters.out byte for byte)."""
     from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
                                               MAIN_SEED, synthetic_reads)
     reads = synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED)
@@ -618,11 +900,21 @@ def phase_main_path():
     rna["summary_extract_s"] = time.perf_counter() - t1
     print(f"  rna: cluster_summary + extract_clusters "
           f"{rna['summary_extract_s']:.2f} s")
-    cdna = _main_run("cdna", synthetic_reads(MAIN_READS, MAIN_FAMILIES,
-                                             MAIN_SEED, revcomp=True), [])[0]
+    reads_c = synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED,
+                              revcomp=True)
+    cdna, fq_c, clusters_c = _main_run("cdna", reads_c, [])
+    rna["profiled"] = _api_launches("rna", fq, ["--rna"])
+    cdna["profiled"] = _api_launches("cdna", fq_c, [])
+    rna["plain_score_path"] = _plain_parity("rna", reads, ["--rna"],
+                                            clusters_out)
+    cdna["plain_score_path"] = _plain_parity("cdna", reads_c, [], clusters_c)
     print(f"phase 5 main path: cluster --rna and cDNA cluster on {MAIN_READS} "
           f"reads of {MAIN_FAMILIES} families on cuda, every read in one "
-          "cluster, both cluster kernels launched in each run")
+          "cluster, every cluster kernel launched in each run "
+          f"({rna['profiled']['launch_calls']} / "
+          f"{cdna['profiled']['launch_calls']} CUDA launch calls), "
+          "clusters.out byte-identical with the score path on its plain "
+          "versions")
     return dict(rna=rna, cdna=cdna), fq, clusters_out
 
 
@@ -793,9 +1085,9 @@ def _capacity_fallback():
 
 
 @contextlib.contextmanager
-def _engine_constants(**values):
-    """Set module constants of cluster/bulk.py (read when an engine is
-    built) for the duration of the block."""
+def _bulk_names(**values):
+    """Set names of cluster/bulk.py for the duration of the block: module
+    constants (read when an engine is built) or the kernels it calls."""
     from rattle_tpu_torch.cluster import bulk
     saved = {k: getattr(bulk, k) for k in values}
     for k, v in values.items():
@@ -823,7 +1115,7 @@ def _forced_rescores(fq: str, oracle_out: str):
     for label, consts in FORCED_RESCORES:
         out = os.path.join(WORK, f"parity_rna_{label}")
         os.makedirs(out)
-        with _engine_constants(**consts):
+        with _bulk_names(**consts):
             wall, launches = _counted(["cluster", "-i", fq, "-o", out,
                                        "--rna"])
         n_host = _host_rescores()
@@ -931,7 +1223,7 @@ def rank_worker(spec_json: str) -> int:
         argv = [a.replace("{rank}", str(rank)) for a in argv]
         metrics.GLOBAL.stages.clear()
         metrics.GLOBAL.counters.clear()
-        with _engine_constants(**consts):
+        with _bulk_names(**consts):
             torch.cuda.synchronize()
             kernels.reset_launches()
             launch.reset_stats()
@@ -1056,7 +1348,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi, build_s = phase_device()
     bv_rows = phase_bv_common(dev)
-    lis_rows = phase_lis(dev)
+    lis_rows, cap = phase_lis(dev)
+    score_rows = phase_score_path(dev, cap)
     poa_rows = phase_poa(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(f"kernel phases only: {time.perf_counter() - t_start:.1f} s")
@@ -1087,9 +1380,22 @@ def main() -> int:
         record("poa_align", poa_rows[-1],
                "rattle_tpu_torch/csrc/poa_align.cu",
                "rattle_tpu/ops/poa_pallas.py:556"),
+        # the score path (the parts of JAX's jitted score and replay
+        # programs); each row is the main path's first chunk of the count
+        # pass (the widest chunk, the narrowest class) and its block replay
+        record("join_expand", score_rows["join_expand"][0],
+               "rattle_tpu_torch/csrc/join_expand.cu",
+               "rattle_tpu/cluster/bulk.py:245"),
+        record("score_decide", score_rows["score_decide"][0],
+               "rattle_tpu_torch/csrc/score_decide.cu",
+               "rattle_tpu/cluster/bulk.py:276"),
+        record("greedy_owner", score_rows["greedy_owner"][0],
+               "rattle_tpu_torch/csrc/greedy_owner.cu",
+               "rattle_tpu/cluster/bulk.py:459"),
     ]}
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
-                  lis_filter=lis_rows, poa_align=poa_rows,
+                  lis_filter=lis_rows, score_path=score_rows,
+                  poa_align=poa_rows,
                   main_path=main_res, correct_path=correct_res,
                   parity=parity, ranks=ranks,
                   total_s=time.perf_counter() - t_start, **kernels_line)

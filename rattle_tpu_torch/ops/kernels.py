@@ -1,4 +1,6 @@
-"""The port's three kernels, each beside its plain PyTorch version.
+"""The port's kernels, each beside its plain PyTorch version.
+
+The three counterparts of the JAX package's Pallas kernels:
 
 * ``bv_common``  -- csrc/bv_common.cu, replaces
   rattle_tpu/ops/pallas_kernels.py::bv_common_matmul.
@@ -7,12 +9,22 @@
 * ``poa_align``  -- csrc/poa_align.cu, replaces
   rattle_tpu/ops/poa_pallas.py::poa_align_pallas.
 
+and the kernels of ``cluster``'s score path, the parts of the JAX package's
+jitted programs that ran as eager launch chains:
+
+* ``join_expand``  -- csrc/join_expand.cu: the table gathers and the join of
+  rattle_tpu/cluster/bulk.py::_score_body (merge_join_expand /
+  sorted_join_expand of rattle_tpu/ops/join_device.py).
+* ``score_decide`` -- csrc/score_decide.cu: the decision half of _score_body.
+* ``greedy_owner`` -- csrc/greedy_owner.cu: rattle_tpu/cluster/bulk.py::
+  greedy_owner, the block replay.
+
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and takes the
 plain version only because its tensors lie on the CPU; there is no fallback
 from one to the other.  Each wrapper counts its kernel launches in a plain
-integer attribute (``bv_common.launches``, ``lis_filter.launches``,
-``poa_align.launches``) so a run can show that a path went through the kernel;
-``lis_filter.shapes`` splits its count by (M, B).
+integer attribute (``bv_common.launches``, ``join_expand.launches``, ...) so
+a run can show that a path went through the kernel; ``lis_filter.shapes``
+splits its count by (M, B).
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _ext
+from . import join_device
 from .lis_select import (anchor_filter_select, lis_build_select,
                          lis_reconstruct_select)
 from .similarity import variance
@@ -400,7 +413,284 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
 
 poa_align.launches = 0
 
-_KERNELS = (bv_common, lis_filter, poa_align)
+# --------------------------------------------------------------------------
+# cluster's score path: join, decision, block replay
+# --------------------------------------------------------------------------
+
+# the block replay keeps a block's owners in one CTA's shared memory
+GREEDY_MAX_K = 4096
+
+
+def _check_table(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 device: torch.device) -> None:
+    """A 2-d table read row by row in place: any row stride, unit column
+    stride (a class slice ``hs[:, :width]`` of the sketch passes)."""
+    if t.dtype != dtype or t.dim() != 2 or t.device != device:
+        raise ValueError(f"{name}: expected 2-d {dtype} on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if t.shape[1] < 1 or (t.shape[0] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{name}: expected width >= 1 and unit column "
+                         f"stride, got {tuple(t.shape)} strides {t.stride()}")
+
+
+def _row_stride(t: torch.Tensor) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def join_expand_plain(rows, cols, row_ids, col_ids, row_tab, col_tab,
+                      hs_a, ps_a, hs_b, ps_b, nk, m_cap: int,
+                      total: Optional[torch.Tensor] = None,
+                      bound: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Plain version: the rows of both tables gathered into [B, W] copies,
+    then ops/join_device.join_expand (the eager chain ``score_chunk`` ran
+    before the kernel).  ``total`` and ``bound`` as in ``join_expand``."""
+    a_ids = row_ids[rows]
+    b_ids = col_ids[cols]
+    a_t = a_ids if row_tab is row_ids else row_tab[rows]
+    b_t = b_ids if col_tab is col_ids else col_tab[cols]
+    p1, p2, tot = join_device.join_expand(hs_a[a_t], ps_a[a_t], nk[a_ids],
+                                          hs_b[b_t], ps_b[b_t], nk[b_ids],
+                                          m_cap)
+    n_valid = torch.clamp(tot, max=m_cap)
+    valid = torch.arange(m_cap, device=p1.device)[None, :] < n_valid[:, None]
+    if total is None:
+        total = tot
+    else:
+        total.copy_(tot)
+    if bound is None:
+        bound = torch.zeros(1, dtype=torch.int32, device=p1.device)
+    if rows.shape[0]:
+        torch.maximum(bound, n_valid.max().reshape(1), out=bound)
+    return p1, p2, total, valid, bound
+
+
+def join_expand(rows: torch.Tensor, cols: torch.Tensor,
+                row_ids: torch.Tensor, col_ids: torch.Tensor,
+                row_tab: torch.Tensor, col_tab: torch.Tensor,
+                hs_a: torch.Tensor, ps_a: torch.Tensor, hs_b: torch.Tensor,
+                ps_b: torch.Tensor, nk: torch.Tensor, m_cap: int,
+                total: Optional[torch.Tensor] = None,
+                bound: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
+    """The common-k-mer join of B read pairs, each read from its two table
+    rows in place.  Pair i joins a = row_ids[rows[i]] (row row_tab[rows[i]]
+    of hs_a/ps_a) with b = col_ids[cols[i]] (row col_tab[cols[i]] of
+    hs_b/ps_b), over their first nk[a] / nk[b] entries.
+
+    rows, cols [B] and row_ids/row_tab, col_ids/col_tab int64; hs_* [*, W*]
+    int64 hashes < 2^32 sorted by (hash, pos) over each read's first nk
+    entries, ps_* the co-sorted int32 positions (>= 0), each table with unit
+    column stride (class slices of the sketch are read in place); nk int32
+    by global read id; 1 <= m_cap <= LIS_MAX_M.
+
+    Returns (p1, p2 [B, m_cap] int32: the first m_cap matches in (p1, p2)
+    order, p1 padded with 0 and p2 with INT32_MAX; total [B] int32, the true
+    match count; valid [B, m_cap] bool, the first min(total, m_cap) slots;
+    bound [1] int32).  On overflow (total > m_cap) only total is
+    contractual.  ``total``: an optional int32 [B] tensor written in place
+    (a slice of the caller's output); ``bound``: an optional int32 [1] tensor
+    raised in place to the batch's largest min(total, m_cap), read by
+    lis_filter on the device (a fresh zero when omitted)."""
+    dev = rows.device
+    _check("join_expand rows", rows, torch.int64, 1, dev)
+    _check("join_expand cols", cols, torch.int64, 1, dev, rows.shape[0])
+    for name, t in (("row_ids", row_ids), ("col_ids", col_ids),
+                    ("row_tab", row_tab), ("col_tab", col_tab)):
+        _check(f"join_expand {name}", t, torch.int64, 1, dev)
+    if row_tab.shape != row_ids.shape or col_tab.shape != col_ids.shape:
+        raise ValueError("join_expand: row_tab / col_tab must match row_ids "
+                         "/ col_ids")
+    _check_table("join_expand hs_a", hs_a, torch.int64, dev)
+    _check_table("join_expand ps_a", ps_a, torch.int32, dev)
+    _check_table("join_expand hs_b", hs_b, torch.int64, dev)
+    _check_table("join_expand ps_b", ps_b, torch.int32, dev)
+    if hs_a.shape != ps_a.shape or hs_b.shape != ps_b.shape:
+        raise ValueError("join_expand: hashes and positions must share a "
+                         "shape on each side")
+    _check("join_expand nk", nk, torch.int32, 1, dev)
+    if not 1 <= m_cap <= LIS_MAX_M:
+        raise ValueError(f"join_expand: m_cap must be in [1, {LIS_MAX_M}], "
+                         f"got {m_cap}")
+    b = rows.shape[0]
+    if total is not None:
+        _check("join_expand total", total, torch.int32, 1, dev, b)
+    if bound is not None:
+        _check("join_expand bound", bound, torch.int32, 1, dev, 1)
+    if not _on_card(rows):
+        return join_expand_plain(rows, cols, row_ids, col_ids, row_tab,
+                                 col_tab, hs_a, ps_a, hs_b, ps_b, nk, m_cap,
+                                 total, bound)
+    if total is None:
+        total = torch.empty((b,), dtype=torch.int32, device=dev)
+    if bound is None:
+        bound = torch.zeros((1,), dtype=torch.int32, device=dev)
+    p1 = torch.empty((b, m_cap), dtype=torch.int32, device=dev)
+    p2 = torch.empty_like(p1)
+    valid = torch.empty((b, m_cap), dtype=torch.bool, device=dev)
+    if b == 0:
+        return p1, p2, total, valid, bound
+    fn = _ext.load("join_expand").join_expand_launch
+    _raise_on(fn(rows.data_ptr(), cols.data_ptr(), row_ids.data_ptr(),
+                 col_ids.data_ptr(), row_tab.data_ptr(), col_tab.data_ptr(),
+                 hs_a.data_ptr(), ps_a.data_ptr(), _row_stride(hs_a),
+                 _row_stride(ps_a), hs_a.shape[1], hs_b.data_ptr(),
+                 ps_b.data_ptr(), _row_stride(hs_b), _row_stride(ps_b),
+                 hs_b.shape[1], nk.data_ptr(), b, m_cap, p1.data_ptr(),
+                 p2.data_ptr(), valid.data_ptr(), total.data_ptr(),
+                 bound.data_ptr(), _stream(dev)), "join_expand")
+    join_expand.launches += 1
+    return p1, p2, total, valid, bound
+
+
+join_expand.launches = 0
+
+
+def score_decide_plain(rows, cols, row_ids, col_ids, bases, var, total, lens,
+                       sc_tab, t_v, var_band, strand_val: int, w, cache,
+                       cache_n: int, m_cap: int,
+                       border: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: the eager decision ``score_chunk`` ran before the
+    kernel.  Same arguments and effects as ``score_decide``."""
+    a_ids = row_ids[rows]
+    b_ids = col_ids[cols]
+    mn = torch.minimum(lens[a_ids], lens[b_ids])
+    score_ok = bases >= sc_tab[mn]
+    borderline = torch.abs(var - t_v) <= var_band
+    fits = total <= m_cap
+    win = score_ok & (var < t_v) & ~borderline & fits
+    bord = score_ok & borderline & fits
+    decided = fits & ~bord
+    cur = w[rows, cols]
+    w[rows, cols] = torch.where(win, torch.clamp(cur, min=strand_val), cur)
+    if cache is not None:
+        flat = a_ids * cache_n + b_ids
+        cache[flat] = torch.where(decided, torch.where(win, 2, 1),
+                                  cache[flat]).to(torch.uint8)
+    if border is None:
+        return bord
+    border.copy_(bord)
+    return border
+
+
+def score_decide(rows: torch.Tensor, cols: torch.Tensor,
+                 row_ids: torch.Tensor, col_ids: torch.Tensor,
+                 bases: torch.Tensor, var: torch.Tensor, total: torch.Tensor,
+                 lens: torch.Tensor, sc_tab: torch.Tensor, t_v: torch.Tensor,
+                 var_band: torch.Tensor, strand_val: int, w: torch.Tensor,
+                 cache: Optional[torch.Tensor], cache_n: int, m_cap: int,
+                 border: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decision of B scored pairs (cluster.cpp:24-37): score_ok = bases
+    >= sc_tab[min(lens[a], lens[b])], borderline = |var - t_v| <= var_band
+    (float32), fits = total <= m_cap; a win (score_ok, var < t_v, not
+    borderline, fits) sets w[row, col] = max(w[row, col], strand_val), and a
+    decided pair (fits, not border) sets cache[a * cache_n + b] to 2 (win) or
+    1, both in place.  Returns border = score_ok & borderline & fits, the
+    pairs the host rescores (written into ``border`` when given).
+
+    rows, cols [B] int64 into row_ids / col_ids (int64 global ids); bases,
+    total [B] int32, var [B] float32; lens, sc_tab int32; t_v, var_band
+    float32 scalar tensors; w [R, C] int8; cache uint8 [cache_n^2] or None.
+    The (row, col) pairs, and the (a, b) pairs, of one call are unique."""
+    dev = rows.device
+    b = rows.shape[0]
+    _check("score_decide rows", rows, torch.int64, 1, dev)
+    _check("score_decide cols", cols, torch.int64, 1, dev, b)
+    _check("score_decide row_ids", row_ids, torch.int64, 1, dev)
+    _check("score_decide col_ids", col_ids, torch.int64, 1, dev)
+    _check("score_decide bases", bases, torch.int32, 1, dev, b)
+    _check("score_decide var", var, torch.float32, 1, dev, b)
+    _check("score_decide total", total, torch.int32, 1, dev, b)
+    _check("score_decide lens", lens, torch.int32, 1, dev)
+    _check("score_decide sc_tab", sc_tab, torch.int32, 1, dev)
+    for name, t in (("t_v", t_v), ("var_band", var_band)):
+        _check(f"score_decide {name}", t.reshape(-1), torch.float32, 1, dev,
+               1)
+    _check("score_decide w", w, torch.int8, 2, dev)
+    if cache is not None:
+        _check("score_decide cache", cache, torch.uint8, 1, dev)
+        if cache.shape[0] < cache_n * cache_n:
+            raise ValueError(f"score_decide: cache has {cache.shape[0]} "
+                             f"entries, needs {cache_n * cache_n}")
+    if border is not None:
+        _check("score_decide border", border, torch.bool, 1, dev, b)
+    if not _on_card(rows):
+        return score_decide_plain(rows, cols, row_ids, col_ids, bases, var,
+                                  total, lens, sc_tab, t_v, var_band,
+                                  strand_val, w, cache, cache_n, m_cap,
+                                  border)
+    if border is None:
+        border = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return border
+    fn = _ext.load("score_decide").score_decide_launch
+    _raise_on(fn(rows.data_ptr(), cols.data_ptr(), row_ids.data_ptr(),
+                 col_ids.data_ptr(), bases.data_ptr(), var.data_ptr(),
+                 total.data_ptr(), lens.data_ptr(), sc_tab.data_ptr(),
+                 t_v.data_ptr(), var_band.data_ptr(), strand_val,
+                 w.data_ptr(), w.shape[1],
+                 None if cache is None else cache.data_ptr(), cache_n, b,
+                 m_cap, border.data_ptr(), _stream(dev)), "score_decide")
+    score_decide.launches += 1
+    return border
+
+
+score_decide.launches = 0
+
+
+def greedy_owner_plain(w: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Plain version: one step of a few small launches for each row that
+    wins a later read (a row without wins claims nothing, seed or not),
+    the rows found with one host sync."""
+    n = w.shape[0]
+    dev = w.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    live = (iota[None, :] > iota[:, None]) & (iota[None, :] < n_valid)
+    wins = (w > 0) & live
+    rev_w = w == 1
+    owner = iota.clone()
+    rev = torch.zeros(n, dtype=torch.bool, device=dev)
+    unclaimed = torch.ones(n, dtype=torch.bool, device=dev)
+    steps = torch.nonzero(wins[:n_valid].any(dim=1)).flatten().tolist()
+    for i in steps:
+        newly = wins[i] & unclaimed & unclaimed[i]
+        owner = torch.where(newly, i, owner)
+        rev = torch.where(newly, rev_w[i], rev)
+        unclaimed = unclaimed & ~newly
+    return (owner << 1) | rev.to(torch.int32)
+
+
+def greedy_owner(w: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Exact replay of the reference's greedy absorption (cluster.cpp:124-
+    166) inside one block.  ``w`` [K, K] int8, K <= GREEDY_MAX_K: 0 no, 1
+    reverse win, 2 forward win (row = the earlier read).  Rows are walked
+    in order; a row whose read still owns itself claims every later
+    unclaimed column below ``n_valid`` it wins.  Returns packed [K] int32 =
+    (owner << 1) | rev.  One launch, no host sync."""
+    dev = w.device
+    _check("greedy_owner w", w, torch.int8, 2, dev)
+    k = w.shape[0]
+    if w.shape[1] != k or k > GREEDY_MAX_K:
+        raise ValueError(f"greedy_owner: w must be [K, K] with K <= "
+                         f"{GREEDY_MAX_K}, got {tuple(w.shape)}")
+    if not 0 <= n_valid <= k:
+        raise ValueError(f"greedy_owner: n_valid {n_valid} not in [0, {k}]")
+    if not _on_card(w):
+        return greedy_owner_plain(w, n_valid)
+    packed = torch.empty((k,), dtype=torch.int32, device=dev)
+    if k == 0:
+        return packed
+    fn = _ext.load("greedy_owner").greedy_owner_launch
+    _raise_on(fn(w.data_ptr(), k, n_valid, packed.data_ptr(), _stream(dev)),
+              "greedy_owner")
+    greedy_owner.launches += 1
+    return packed
+
+
+greedy_owner.launches = 0
+
+_KERNELS = (bv_common, lis_filter, poa_align, join_expand, score_decide,
+            greedy_owner)
 
 
 def reset_launches() -> None:

@@ -1,16 +1,24 @@
 """Where the time of ``cluster`` goes on the card.
 
-    python -m rattle_tpu_torch.pipeline.profile_cluster [--cdna]
+    python -m rattle_tpu_torch.pipeline.profile_cluster [--cdna] [--wall-only]
 
 Clusters chip_smoke.py's main-path input (utils/synth.py MAIN_READS,
 MAIN_FAMILIES, MAIN_SEED; ``cluster --rna``, or with ``--cdna`` the cDNA
 reads of both strands) through the CLI on cuda twice: once plain, for the
 wall time and the engine's own phase and section times, then once under
 torch.profiler (CPU + CUDA activities) for the device busy time, the idle
-share (1 - busy / wall of the profiled run), the device time of each of the
-port's kernels, lis_filter's launches and device time split by tier and by
-(M, B, bound bucket) (``lis_split``), and the top operators by device and
-by host time.  The last line is one JSON object with these numbers.
+share (1 - busy / wall of the profiled run), the CUDA runtime's kernel
+launch calls, the device time and launches of each of the port's kernels
+(the score path's join_expand, score_decide and greedy_owner beside
+lis_filter and bv_common), lis_filter's launches and device time split by
+tier and by (M, B, bound bucket) (``lis_split``), and the top operators by
+device and by host time.  The last line is one JSON object with these
+numbers.  ``--wall-only`` runs ``cluster`` WALL_RUNS more times unprofiled
+instead (the first run builds the kernels) and prints their wall times.
+
+The imports are absolute, so the script also times another checkout of the
+package: ``PYTHONPATH=<checkout> python <this file> --wall-only`` run from
+that checkout (two commits compared in one call on one card).
 """
 
 from __future__ import annotations
@@ -24,15 +32,18 @@ import time
 
 import torch
 
-from ..cluster import bulk
-from ..ops import kernels
-from ..utils import metrics
-from ..utils.synth import (MAIN_FAMILIES, MAIN_READS, MAIN_SEED,
-                           synthetic_reads, write_fastq)
-from . import cli
+from rattle_tpu_torch.cluster import bulk
+from rattle_tpu_torch.ops import kernels
+from rattle_tpu_torch.pipeline import cli
+from rattle_tpu_torch.utils import metrics
+from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
+                                          MAIN_SEED, synthetic_reads,
+                                          write_fastq)
 
 _ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
+# warm unprofiled runs that --wall-only times
+WALL_RUNS = 4
 
 
 def _run(fq: str, out: str, flags) -> float:
@@ -50,6 +61,34 @@ def _device_us(avg) -> float:
     # the attribute was self_cuda_time_total before torch 2.4
     return float(getattr(avg, "self_device_time_total",
                          getattr(avg, "self_cuda_time_total", 0.0)))
+
+
+def launch_calls(avgs) -> dict:
+    """{name: calls} of the CUDA runtime's kernel launch functions
+    (cudaLaunchKernel, cudaLaunchKernelExC, ...) in a profile's averages."""
+    return {a.key: a.count for a in avgs if a.key.startswith("cudaLaunch")}
+
+
+def device_busy_s(prof) -> float:
+    """Seconds of device activity (kernels, copies, sets) in a profile."""
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def profiled_launches(run) -> dict:
+    """Run ``run()`` under torch.profiler.  Returns its wall time, the CUDA
+    runtime's kernel launch calls (``launch_calls``, their sum and by
+    call), the device busy time and the idle share (1 - busy / wall)."""
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = launch_calls(prof.key_averages())
+    busy = device_busy_s(prof)
+    return dict(wall_s=wall, launch_calls=sum(calls.values()),
+                by_call=calls, device_busy_s=busy, idle_share=1 - busy / wall)
 
 
 def lis_split(run, keep: bool = False):
@@ -128,16 +167,23 @@ def main() -> int:
         metrics.GLOBAL.stages.clear()
         kernels.reset_launches()
         wall = _run(fq, tmp, flags)
+        if "--wall-only" in sys.argv[1:]:
+            walls = [_run(fq, tmp, flags) for _ in range(WALL_RUNS)]
+            print(json.dumps({
+                "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
+                "flags": flags, "first_wall_s": wall, "walls_s": walls}))
+            return 0
         stages = dict(metrics.GLOBAL.stages)
         launches = kernels.launches()
         walls = []
         split, prof, _ = lis_split(
             lambda: walls.append(_run(fq, tmp, flags)))
         wall_prof = walls[0]
-    cuda_events = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in cuda_events) / 1e6
+    n_events = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_s = device_busy_s(prof)
     avgs = prof.key_averages()
+    calls = launch_calls(avgs)
     by_dev = sorted(avgs, key=_device_us, reverse=True)[:12]
     # the port's own kernels, by their names in csrc/*.cu
     kernel_ms = {name: sum(_device_us(a) for a in avgs
@@ -148,8 +194,9 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}: {MAIN_READS} reads, cluster "
           f"{' '.join(flags) or '(cDNA)'} {wall:.3f} s unprofiled, "
           f"{wall_prof:.3f} s profiled; device busy "
-          f"{busy_s:.3f} s ({len(cuda_events)} device events), idle share "
-          f"{1 - busy_s / wall_prof:.3f}")
+          f"{busy_s:.3f} s ({n_events} device events), idle share "
+          f"{1 - busy_s / wall_prof:.3f}; {sum(calls.values())} CUDA launch "
+          f"calls {calls}")
     print("kernels' device time (ms): " + ", ".join(
         f"{k}={v:.1f} ({launches[k]} launches)" for k, v in kernel_ms.items()))
     print_split("profiled run:", split)
@@ -166,6 +213,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
         "flags": flags, "wall_s": wall, "wall_profiled_s": wall_prof, "device_busy_s": busy_s,
         "idle_share": 1 - busy_s / wall_prof, "stages_s": stages,
+        "launch_calls": sum(calls.values()), "launch_calls_by_call": calls,
         "launches": launches, "kernel_device_ms": kernel_ms,
         "lis_split": split}))
     return 0

@@ -272,3 +272,80 @@ def lis_cases(b: int, m: int, seed: int = 6):
             name, int(np.nonzero(valid.any(axis=0))[0].max(initial=-1)) + 1)
         out.append((name, p1, p2, valid, bound))
     return out
+
+
+JOIN_CASES = ("one_hash_rows", "nk_one", "unequal_widths", "k16_high_hashes",
+              "wide_class3", "wider_than_shared")
+
+
+def _join_side(rng: np.random.Generator, b: int, width: int, nk: np.ndarray,
+               hashes):
+    """[b, width] int64 hashes sorted by (hash, pos) over each row's first
+    nk entries (PAD_HASH after them, as in the sketch) and the co-sorted
+    distinct int32 positions."""
+    hs = np.full((b, width), 0xFFFFFFFF, np.int64)
+    ps = np.zeros((b, width), np.int32)
+    for r in range(b):
+        h = np.asarray(hashes(int(nk[r])), np.int64)
+        p = rng.permutation(2 * width)[:nk[r]].astype(np.int32)
+        o = np.lexsort((p, h))
+        hs[r, :nk[r]], ps[r, :nk[r]] = h[o], p[o]
+    return hs, ps
+
+
+def join_cases(b: int = 8, seed: int = 16, wide: bool = True):
+    """[(name, args, m_cap)] in ``JOIN_CASES`` order: the arguments of
+    ``ops.kernels.join_expand`` before m_cap, as numpy arrays (rows, cols,
+    row_ids, col_ids, row_tab, col_tab, hs_a, ps_a, hs_b, ps_b, nk), for b
+    pairs whose tables stress one rule of the join each:
+
+    * one_hash_rows: one hash over every entry of both rows (a total of
+      1024^2, far past m_cap);
+    * nk_one: one entry a read;
+    * unequal_widths: a 1024-wide a table against a 4096-wide b table;
+    * k16_high_hashes: k = 16 hashes, most >= 2^31, 0xFFFFFFFF (the pad
+      value) among the real ones;
+    * wide_class3: a class-3 width of 6144, above every fixed class;
+    * wider_than_shared: 60,000 entries a row, wider than a block's shared
+      memory holds (left out with ``wide=False``).
+
+    Pairs repeat rows and columns; a-side reads have ids 0..b-1 and b-side
+    reads b..2b-1, whose tables rows are listed in reverse."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name in JOIN_CASES:
+        if name == "wider_than_shared" and not wide:
+            continue
+        wa, wb, m_cap = {"unequal_widths": (1024, 4096, 512),
+                         "k16_high_hashes": (2048, 2048, 2048),
+                         "wide_class3": (6144, 6144, 2048),
+                         "wider_than_shared": (60000, 60000, 2048)}.get(
+            name, (1024, 1024, 128))
+        nb = 4 if name == "wider_than_shared" else b
+        if name == "one_hash_rows":
+            nk_a, nk_b = np.full(nb, wa), np.full(nb, wb)
+            hashes = lambda n: np.full(n, 12345)  # noqa: E731
+        elif name == "nk_one":
+            nk_a = nk_b = np.ones(nb, np.int64)
+            hashes = lambda n: rng.integers(0, 3, n)  # noqa: E731
+        else:
+            nk_a = rng.integers(wa // 2, wa + 1, nb)
+            nk_b = rng.integers(wb // 2, wb + 1, nb)
+            if name == "k16_high_hashes":
+                pool = np.array([2**31, 2**31 + 7, 2**32 - 1, 3 << 30, 9],
+                                np.int64)
+                hashes = lambda n: np.where(  # noqa: E731
+                    rng.random(n) < 0.02, rng.choice(pool, n),
+                    rng.integers(2**31, 2**32, n))
+            else:
+                hashes = lambda n, s=2 * wa: rng.integers(0, s, n)  # noqa
+        hs_a, ps_a = _join_side(rng, nb, wa, nk_a, hashes)
+        hs_b, ps_b = _join_side(rng, nb, wb, nk_b, hashes)
+        nk = np.concatenate([nk_a, nk_b]).astype(np.int32)
+        hs_b, ps_b = hs_b[::-1].copy(), ps_b[::-1].copy()
+        ids = np.arange(nb, dtype=np.int64)
+        rows = rng.integers(0, nb, nb).astype(np.int64)
+        cols = rng.integers(0, nb, nb).astype(np.int64)
+        out.append((name, (rows, cols, ids, ids + nb, ids, ids[::-1].copy(),
+                           hs_a, ps_a, hs_b, ps_b, nk), m_cap))
+    return out

@@ -202,3 +202,88 @@ def test_replays_match_jax():
     np.testing.assert_array_equal(
         tbulk.absorb_rest(torch.from_numpy(w)).numpy(),
         np.asarray(jbulk.absorb_rest(jnp.asarray(w))))
+
+
+def test_greedy_owner_plain_matches_jax_full_block():
+    """The block replay's plain version against JAX's ``greedy_owner`` at
+    the block size K = 4,096 with n_valid < K: random wins in both
+    triangles and past n_valid (masked by both), and a late seed that wins
+    every later read, so owns every read after it that is still its own."""
+    import jax.numpy as jnp
+    from rattle_tpu.cluster import bulk as jbulk
+    from rattle_tpu_torch.ops import kernels
+    rng = np.random.default_rng(4096)
+    k, n_valid = 4096, 4000
+    w = rng.choice(np.array([0, 1, 2], np.int8), (k, k),
+                   p=[0.998, 0.001, 0.001])
+    w[3000, 3001:] = rng.choice(np.array([1, 2], np.int8), k - 3001)
+    w[:3000, 3000] = 0                  # so that read 3000 is a seed
+    ref = np.asarray(jbulk.greedy_owner(jnp.asarray(w), jnp.int32(n_valid)))
+    got = kernels.greedy_owner_plain(torch.from_numpy(w), n_valid).numpy()
+    np.testing.assert_array_equal(got, ref)
+    owner = got >> 1
+    assert (owner[3001:n_valid] <= 3000).all() and owner[3000] == 3000
+    np.testing.assert_array_equal(got[n_valid:], np.arange(n_valid, k) << 1)
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        kernels.greedy_owner(torch.from_numpy(w), n_valid).numpy(), ref)
+
+
+def test_score_decide_plain_matches_jax_score_body(monkeypatch):
+    """``score_decide``'s plain version against the decision half of JAX's
+    ``_score_body``: its join and LIS kernel are replaced by fixed outputs,
+    so the same (bases, var, total) reach both decisions.  var sits at
+    t_v +- var_band and one float32 step outside, total at m_cap and
+    m_cap + 1; wins land in w, outcomes in the score cache (fresh pairs:
+    0 before), border is returned."""
+    import jax.numpy as jnp
+    from rattle_tpu.cluster import bulk as jbulk
+    from rattle_tpu.ops import pallas_kernels
+    from rattle_tpu_torch.ops import kernels
+    rng = np.random.default_rng(8)
+    n, n_rows, n_cols, m_cap = 60, 24, 30, 128
+    tv, band = np.float32(25.0), np.float32(0.5)
+    flat = rng.permutation(n_rows * n_cols)[:500]
+    rows, cols = flat // n_cols, flat % n_cols
+    b = len(rows)
+    row_ids = rng.permutation(n)[:n_rows]
+    col_ids = rng.permutation(n)[:n_cols]
+    edges = np.array([tv - band, tv + band], np.float32)
+    var = rng.choice(np.concatenate([
+        edges, np.nextafter(edges, [-np.inf, np.inf]).astype(np.float32),
+        np.float32([0, 10, 24.9, 30, np.inf, np.nan])]), b).astype(np.float32)
+    bases = rng.integers(0, 90, b).astype(np.int32)
+    total = rng.choice([5, m_cap - 1, m_cap, m_cap + 1], b).astype(np.int32)
+    lens = rng.integers(60, 250, n).astype(np.int32)
+    sc_tab = rng.integers(0, 70, 251).astype(np.int32)
+    w0 = rng.integers(0, 3, (n_rows, n_cols)).astype(np.int8)
+    cache0 = rng.integers(0, 3, n * n).astype(np.uint8)
+    cache0[row_ids[rows] * n + col_ids[cols]] = 0
+
+    monkeypatch.setattr(jbulk, "merge_join_expand", lambda *a: (
+        jnp.zeros((b, m_cap), jnp.int32), jnp.zeros((b, m_cap), jnp.int32),
+        jnp.asarray(total)))
+    monkeypatch.setattr(pallas_kernels, "lis_filter_pallas",
+                        lambda *a, **k: (jnp.asarray(bases), None, None,
+                                         jnp.asarray(var)))
+    tabs = jnp.zeros((n, 8), jnp.uint32), jnp.zeros((n, 8), jnp.int32)
+    t = torch.from_numpy
+    for strand_val in (1, 2):
+        w_ref, cache_ref, border_ref, _ = jbulk._score_body(
+            jnp.asarray(rows, jnp.int32), jnp.asarray(cols, jnp.int32),
+            jnp.asarray(row_ids, jnp.int32), jnp.asarray(col_ids, jnp.int32),
+            *tabs, jnp.zeros(n, jnp.int32), *tabs, jnp.asarray(lens),
+            jnp.asarray(sc_tab), jnp.float32(tv), jnp.float32(band),
+            strand_val, jnp.asarray(w0), jnp.asarray(cache0), m_cap, 10, 10,
+            n, use_pallas=True)
+        w, cache = t(w0.copy()), t(cache0.copy())
+        border = kernels.score_decide(
+            t(rows.astype(np.int64)), t(cols.astype(np.int64)),
+            t(row_ids.astype(np.int64)), t(col_ids.astype(np.int64)),
+            t(bases), t(var), t(total), t(lens), t(sc_tab),
+            torch.tensor(tv), torch.tensor(band), strand_val, w, cache, n,
+            m_cap)
+        np.testing.assert_array_equal(border.numpy(), np.asarray(border_ref))
+        np.testing.assert_array_equal(w.numpy(), np.asarray(w_ref))
+        np.testing.assert_array_equal(cache.numpy(), np.asarray(cache_ref))
+        assert border.any() and (w.numpy() != w0).any()

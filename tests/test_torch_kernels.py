@@ -1,7 +1,12 @@
 """The two kernels' plain versions vs the JAX Pallas kernels (interpret mode)
-and their XLA twins, on the CPU.  The CUDA kernels themselves are held
-against these plain versions on the card by chip_smoke.py (this suite needs
-jax, which the card's machine does not have)."""
+and their XLA twins, on the CPU, and the argument checks of the score
+path's wrappers (join_expand, score_decide, greedy_owner; their plain
+versions are held against the JAX package in test_torch_join.py and
+test_torch_engine.py).  The CUDA kernels themselves are held against these
+plain versions on the card by chip_smoke.py (this suite needs jax, which
+the card's machine does not have)."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -211,3 +216,96 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     first = _ext.library_path("k")[1]
     (src / "k.cu").write_text("// two\n")
     assert _ext.library_path("k")[1] != first
+
+
+def _score_path_args(dev="cpu"):
+    """Small valid arguments of join_expand (up to m_cap) and score_decide."""
+    i64 = lambda n: torch.zeros(n, dtype=torch.int64, device=dev)  # noqa: E731
+    hs = torch.zeros((4, 16), dtype=torch.int64, device=dev)
+    ps = torch.zeros((4, 16), dtype=torch.int32, device=dev)
+    nk = torch.ones(4, dtype=torch.int32, device=dev)
+    join = [i64(3), i64(3), i64(4), i64(4), i64(4), i64(4), hs, ps, hs, ps,
+            nk]
+    i32 = lambda n: torch.zeros(n, dtype=torch.int32, device=dev)  # noqa: E731
+    f32 = lambda: torch.tensor(1.0, device=dev)  # noqa: E731
+    decide = [i64(3), i64(3), i64(4), i64(4), i32(3),
+              torch.zeros(3, device=dev), i32(3), i32(4), i32(8), f32(),
+              f32(), 2, torch.zeros((4, 4), dtype=torch.int8, device=dev),
+              torch.zeros(16, dtype=torch.uint8, device=dev), 4, 8]
+    return join, decide
+
+
+def test_score_path_wrappers_reject_bad_inputs():
+    """join_expand, score_decide and greedy_owner check types, shapes and
+    strides on every device; the good arguments run (the plain versions)."""
+    join, decide = _score_path_args()
+    kernels.join_expand(*join, 8)
+    kernels.score_decide(*decide)
+    kernels.greedy_owner(torch.zeros((5, 5), dtype=torch.int8), 5)
+
+    def bad_join(i, value, m_cap=8, **kw):
+        args = list(join)
+        if i is not None:
+            args[i] = value
+        with pytest.raises(ValueError):
+            kernels.join_expand(*args, m_cap, **kw)
+
+    bad_join(0, join[0].int())                       # rows int32
+    bad_join(1, join[1][:2])                         # cols shorter
+    bad_join(4, join[4][:3])                         # row_tab != row_ids
+    bad_join(6, join[6].int())                       # hashes int32
+    bad_join(7, join[7][:, :8])                      # ps_a narrower
+    bad_join(8, torch.zeros((16, 4), dtype=torch.int64).T)  # column stride
+    bad_join(None, None, m_cap=0)
+    bad_join(None, None, m_cap=kernels.LIS_MAX_M + 1)
+    bad_join(None, None, total=torch.zeros(2, dtype=torch.int32))
+    bad_join(None, None, bound=torch.zeros(2, dtype=torch.int32))
+
+    def bad_decide(i, value, **kw):
+        args = list(decide)
+        if i is not None:
+            args[i] = value
+        with pytest.raises(ValueError):
+            kernels.score_decide(*args, **kw)
+
+    bad_decide(5, decide[5].double())                # var float64
+    bad_decide(6, decide[6][:2])                     # total shorter
+    bad_decide(9, torch.tensor([1.0, 2.0]))          # t_v not a scalar
+    bad_decide(12, decide[12].int())                 # w int32
+    bad_decide(13, decide[13][:15])                  # cache too small
+    bad_decide(None, None, border=torch.zeros(3, dtype=torch.uint8))
+
+    for w, n_valid in ((torch.zeros((4, 5), dtype=torch.int8), 4),
+                       (torch.zeros((5, 5), dtype=torch.int32), 5),
+                       (torch.zeros((5, 5), dtype=torch.int8), 6),
+                       (torch.zeros((kernels.GREEDY_MAX_K + 1,) * 2,
+                                    dtype=torch.int8), 1)):
+        with pytest.raises(ValueError):
+            kernels.greedy_owner(w, n_valid)
+
+    # neither the CPU nor the card: raises, never falls back
+    join_m, decide_m = _score_path_args("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.join_expand(*join_m, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.score_decide(*decide_m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.greedy_owner(torch.zeros((5, 5), dtype=torch.int8,
+                                         device="meta"), 5)
+
+
+@pytest.mark.parametrize("name", ["join_expand", "score_decide",
+                                  "greedy_owner"])
+def test_score_path_kernel_load_needs_nvcc(monkeypatch, tmp_path, name):
+    """Each score-path kernel is a registered library built from its own
+    source at first use; without nvcc loading it raises (what a wrapper
+    does on a CUDA tensor when the library cannot be built)."""
+    from rattle_tpu_torch import _ext
+    assert name in _ext.KERNELS and name in _ext._SIGNATURES
+    assert os.path.exists(_ext.library_path(name)[0])
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_ext, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_ext, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _ext.load(name)
