@@ -15,20 +15,27 @@ Phases, each ending in one summary line:
      register-only mma.sync loops timed in this run;
   3. lis_filter against its plain version (bases, hc and n_dist exactly,
      var to rtol 1e-5 with the same infinities): on synthetic lists at the
-     three tiers' chunk shapes and on the largest chunk of each tier that the
-     main path's first decision wave hands it (timed as lone calls, with the
-     share of the bound; the wave runs under torch.profiler, which splits
-     lis_filter's launches and device time by tier and by (M, B, bound
-     bucket)), on the adversarial lists of
+     three tiers' JAX chunk shapes and on the whole largest launch of each
+     tier that the main path's first decision wave hands it, with that
+     launch's own bound (the plain side in slices of the launch, each with
+     the launch's bound, because its scans over a whole launch would not
+     fit; timed as lone calls, with the share of the bound; the wave runs
+     under torch.profiler, which splits lis_filter's launches and device
+     time by tier and by (M, B, bound bucket)), on the adversarial lists of
      rattle_tpu_torch/utils/synth.lis_cases and at ragged B (1, 33, 4097);
- 3b. the score path's kernels against their plain versions (the parent's
-     eager chain), every output exact: join_expand and score_decide on the
-     largest chunk of each (class width, M tier) of that same first wave,
-     join_expand on the adversarial tables of utils/synth.join_cases (one
-     hash over whole rows, nk = 1, unequal widths, k = 16 hashes >= 2^31,
-     a class-3 width of 6144, rows wider than shared memory), greedy_owner
-     on the wave's block win matrix and on random ones at K = 4,096; lone
-     calls timed beside the parent's chain and each kernel's bound;
+ 3b. the score path's kernels against their plain versions, every output
+     exact: join_expand and score_decide on every launch of that same first
+     wave at its own shape (a whole (class, tier) range unless its working
+     set passes the engine's LAUNCH_BYTES), the plain side in slices of the
+     launch because a whole range's gathers would not fit; join_expand on
+     the adversarial tables of utils/synth.join_cases (one hash over whole
+     rows, nk = 1, unequal widths, k = 16 hashes >= 2^31, a class-3 width
+     of 6144, rows wider than shared memory, equal-hash runs longer than a
+     thread's merge share), greedy_owner on the wave's block win matrix and
+     on random ones at K = 4,096; lone calls timed at the largest launch of
+     each (class width, M tier) and at the JAX engine's chunk of it, beside
+     the plain versions and each kernel's bound, with the join kernel's
+     launch shape and occupancy;
   4. poa_align against its plain version, exactly (best score, move count
      and the packed moves), on read steps captured from pack groups at
      W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
@@ -38,11 +45,13 @@ Phases, each ending in one summary line:
      rattle_tpu_torch/utils/synth.poa_cases at W = 1024 and 4096;
   5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
-     then ``cluster`` in cDNA mode (both strands) on 8,192 reads; in each
-     run every read must land in one cluster and every cluster kernel must
-     have run, and lis_filter's launches are split by (tier M, chunk B)
-     (``kernels.lis_filter.shapes``); each run again under torch.profiler
-     for its CUDA launch calls, device busy time and idle share; and each
+     then ``cluster`` in cDNA mode (both strands) and ``cluster --rna
+     --iso`` on 8,192 reads; in each run every read must land in one
+     cluster and every cluster kernel must have run, and lis_filter's
+     launches are split by (tier M, launch B)
+     (``kernels.lis_filter.shapes``), beside the run's peak device memory;
+     the ``--rna`` and cDNA runs again under torch.profiler for their CUDA
+     launch calls, device busy time and idle share; and each of the three
      again with the score path's three wrappers pointed at their plain
      versions (a switch of this script), whose clusters.out must equal the
      kernel run's byte for byte;
@@ -247,6 +256,15 @@ def phase_bv_common(dev):
     return rows
 
 
+# the JAX engine's fixed chunk sizes (rattle_tpu/cluster/bulk.py
+# COUNT_CHUNKS, SCORE_CHUNKS: pairs a chunk by class, and by class and M
+# tier); phases 3 and 3b time the kernels at these shapes too, beside the
+# port's launches, which take whole (class, tier) ranges
+JAX_COUNT_CHUNKS = (4096, 2048, 1024, 512)
+JAX_SCORE_CHUNKS = ((4096, 2048, 512), (2048, 1024, 256), (1024, 512, 128),
+                    (512, 256, 64))
+
+
 def _match_lists(b: int, m: int, dev, seed: int):
     """utils/synth.match_lists on the card, with the batch's largest count
     as the bound (the engine's own bound)."""
@@ -259,31 +277,29 @@ def _match_lists(b: int, m: int, dev, seed: int):
 
 class _ScoreCapture:
     """Pass-throughs for cluster/bulk.py's join_expand, score_decide and
-    greedy_owner that keep, for each (class width, m_cap), the inputs of
-    the largest chunk of the join and of the decision that follows it (the
-    win matrix and score cache as they were before it), and every block
-    replay's win matrix.  The engine's own calls run unchanged."""
+    greedy_owner that keep, for every launch, the inputs of the join and of
+    the decision that follows it (the win matrix and score cache as they
+    were before it), by (class width, m_cap) in launch order, and every
+    block replay's win matrix.  The engine's own calls run unchanged."""
 
     def __init__(self):
+        from rattle_tpu_torch.ops import kernels
         self.join, self.decide, self.greedy = {}, {}, []
-        self._take = None
+        self._key = None
 
-    def join_expand(self, *args, total=None, bound=None):
-        from rattle_tpu_torch.ops import kernels
-        key = (args[6].shape[1], args[11])
-        self._take = None
-        if args[0].shape[0] > self.join.get(key, (0, None))[0]:
+        def join_expand(*args, total=None, bound=None):
+            self._key = (args[6].shape[1], args[11])
             kept = [a.clone() if i < 2 else a for i, a in enumerate(args)]
-            self.join[key] = (args[0].shape[0], kept)
-            self._take = key
-        return kernels.join_expand(*args, total=total, bound=bound)
+            self.join.setdefault(self._key, []).append(kept)
+            return kernels.join_expand(*args, total=total, bound=bound)
 
-    def score_decide(self, *args, border=None):
-        from rattle_tpu_torch.ops import kernels
-        if self._take is not None:
-            self.decide[self._take] = [
-                a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-        return kernels.score_decide(*args, border=border)
+        def score_decide(*args, border=None):
+            self.decide.setdefault(self._key, []).append(
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args])
+            return kernels.score_decide(*args, border=border)
+
+        self.join_expand, self.score_decide = join_expand, score_decide
 
     def greedy_owner(self, w, n_valid):
         from rattle_tpu_torch.ops import kernels
@@ -292,8 +308,8 @@ class _ScoreCapture:
 
 
 def _capture_lists(dev):
-    """The largest chunk of each tier that the main path's first decision
-    wave hands lis_filter: the engine on utils/synth's main-path reads in
+    """The largest launch of each tier that the main path's first decision
+    wave hands lis_filter, with its bound: the engine on utils/synth's main-path reads in
     the CLI's order (stable length sort), ``cluster --rna`` parameters, one
     block wave, run under the profiler, whose split of lis_filter's launches
     and device time by tier and by (M, B, bound bucket) it prints.  The same
@@ -311,6 +327,7 @@ def _capture_lists(dev):
     eng = bulk.BulkClusterEngine(seqs, params, device=dev)
     ids = np.arange(eng.k_block)
     cap = _ScoreCapture()
+    cap.widths = eng._cls_widths
     with _bulk_names(**{n: getattr(cap, n) for n in SCORE_PATH}):
         split, _prof, kept = lis_split(
             lambda: eng._wave(ids, ids, params.bv_threshold, ordered=True),
@@ -319,14 +336,33 @@ def _capture_lists(dev):
     return kept, cap
 
 
-def _lis_check(what: str, args, bound) -> float:
-    """The kernel against the plain version on one batch: bases, hc and
-    n_dist exact, var with the same inf pattern and within rtol 1e-5.
-    Returns var's largest absolute difference over the finite values."""
+def _lis_slices(p1):
+    """Slices of one launch's pairs for lis_filter_plain: as many pairs a
+    slice as the engine's launch rule gives the plain versions' lists and
+    [B, M] scan temporaries."""
+    from rattle_tpu_torch.cluster.bulk import launch_pairs
+    from rattle_tpu_torch.ops import kernels
+    b, m = p1.shape
+    step = launch_pairs(b, kernels.score_pair_bytes(kernels.join_expand_plain,
+                                                    p1, 0, 0, m))
+    return [slice(i, i + step) for i in range(0, b, step)]
+
+
+def _lis_check(what: str, args, bound, slices=None):
+    """The kernel against the plain version on one batch (the plain version
+    over ``slices`` of it, each with the batch's bound, when given): bases,
+    hc and n_dist exact, var with the same inf pattern and within rtol
+    1e-5.  Returns (var's largest absolute difference over the finite
+    values, ms of the plain run)."""
     from rattle_tpu_torch.ops import kernels
     got = kernels.lis_filter(*args, 10, 10, bound)
-    ref = kernels.lis_filter_plain(*args, 10, 10, bound)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [kernels.lis_filter_plain(*(a[sl] for a in args), 10, 10, bound)
+            for sl in (slices or [slice(None)])]
+    ref = [torch.cat(x) for x in zip(*outs)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     for name, g_, r_ in zip(("bases", "hc", "n_dist"), got, ref):
         check(torch.equal(g_, r_), f"lis_filter {what}: {name} differs")
     finite = torch.isfinite(ref[3])
@@ -335,25 +371,29 @@ def _lis_check(what: str, args, bound) -> float:
     check(torch.allclose(got[3][finite], ref[3][finite], rtol=1e-5,
                          atol=1e-5), f"lis_filter {what}: var off")
     if not bool(finite.any()):
-        return 0.0
-    return float((got[3][finite] - ref[3][finite]).abs().max())
+        return 0.0, plain_ms
+    return float((got[3][finite] - ref[3][finite]).abs().max()), plain_ms
 
 
-def _lis_row(what: str, args, bound) -> dict:
+def _lis_row(what: str, args, bound, sliced: bool = False) -> dict:
     """Check, time and bound one batch: the kernel and the plain version
     (lone calls, as the other kernels are timed: on lists this short the
-    wrapper's host path is part of a call's time), and the bytes the
-    function must move on these lists: valid up
+    wrapper's host path is part of a call's time; ``sliced``: a whole
+    launch, the plain version in ``_lis_slices`` of it, timed once, in the
+    check), and the bytes the function must move on these lists: valid up
     to the bound (1 byte a slot), p2 at the valid slots and p1 at the LIS
     anchors (4 bytes each), the bound itself and four [B] outputs."""
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.ops.lis_select import lis_build_select
     p1, p2, valid = args
     b, m = p1.shape
-    err = _lis_check(what, args, bound)
+    err, plain_ms = _lis_check(what, args, bound,
+                               _lis_slices(p1) if sliced else None)
     ms = time_ms(lambda: kernels.lis_filter(p1, p2, valid, 10, 10, bound))
-    plain_ms = time_ms(lambda: kernels.lis_filter_plain(
-        p1, p2, valid, 10, 10, bound), reps=2 if m >= 2048 else 3, warmup=1)
+    if not sliced:
+        plain_ms = time_ms(lambda: kernels.lis_filter_plain(
+            p1, p2, valid, 10, 10, bound), reps=2 if m >= 2048 else 3,
+            warmup=1)
     nb = int(bound)
     lis_len = lis_build_select(p2[:, :nb], valid[:, :nb])[2]
     nbytes = (b * nb + 4 * int(valid[:, :nb].sum())
@@ -377,19 +417,19 @@ LIS_ADVERSARIAL = ((256, 128), (64, 2048))
 
 def phase_lis(dev):
     """The kernel against its plain version on synthetic lists at the three
-    tiers' chunk shapes, on the largest chunk of each tier that the main
-    path hands it, on the adversarial lists of utils/synth.lis_cases and at
-    ragged B."""
-    from rattle_tpu_torch.cluster.bulk import SCORE_CHUNKS
+    tiers' chunk shapes, on the whole largest launch of each tier that the
+    main path's first wave hands it with that launch's own bound, on the
+    adversarial lists of utils/synth.lis_cases and at ragged B."""
     from rattle_tpu_torch.utils.synth import lis_cases
     rows = []
     for tier, m in enumerate((128, 512, 2048)):
-        b = SCORE_CHUNKS[0][tier]
+        b = JAX_SCORE_CHUNKS[0][tier]
         args, bound = _match_lists(b, m, dev, seed=m)
         rows.append(_lis_row("synthetic", args, bound))
     kept, cap = _capture_lists(dev)
-    for m, (p1, p2, valid, bound) in kept.items():
-        rows.append(_lis_row("main path", [p1, p2, valid], bound))
+    for p1, p2, valid, bound in kept.values():
+        rows.append(_lis_row("main path launch", [p1, p2, valid], bound,
+                             sliced=True))
     names = []
     for b, m in LIS_ADVERSARIAL:
         for name, *arrs, bnd in lis_cases(b, m):
@@ -401,8 +441,9 @@ def phase_lis(dev):
         args, bound = _match_lists(b, m, dev, seed=b)
         _lis_check(f"ragged B={b} M={m}", args, bound)
     print("phase 3 lis_filter: bases/hc/n_dist exact, var within rtol 1e-5, "
-          "at M = 128, 512, 2048, on the main path's chunks "
-          f"(M = {[r['shape'][1] for r in rows[3:]]}), on the adversarial "
+          "at M = 128, 512, 2048, on the main path's largest launch of "
+          "each tier with its own bound, the plain side in slices "
+          f"((B, M) {[r['shape'] for r in rows[3:]]}), on the adversarial "
           f"lists {sorted(set(names))} at (B, M) {list(LIS_ADVERSARIAL)} and "
           f"at ragged (B, M) {list(LIS_RAGGED)}")
     return rows, cap
@@ -412,33 +453,91 @@ def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def _join_bound(args, m_cap: int):
-    """(bound ms, "bytes" or "operations") of one join_expand call on these
-    tables: the bytes of both table rows of each pair (hash 8 + position 4
-    bytes an entry up to its nk), the pair's indices and ids and two nk
-    reads, the match lists written (9 bytes a slot) and total; the
-    operations of the searches (2 log2(na + 1) comparisons a b entry) and
-    of the sort of each pair's kept matches."""
-    rows, cols, row_ids, col_ids = args[:4]
-    wa, wb, nk = args[6].shape[1], args[8].shape[1], args[10]
-    na = nk[row_ids[rows]].clamp(max=wa).double()
-    nb = nk[col_ids[cols]].clamp(max=wb).double()
+def _distinct_row_entries(tab, n):
+    """(entries, rows): the entries of the distinct table rows ``tab``
+    names, row i holding n[i] of them (the same row always holds the same
+    read, so the same n)."""
+    uniq, inv = torch.unique(tab, return_inverse=True)
+    per = torch.zeros(uniq.shape[0], dtype=torch.float64, device=tab.device)
+    per.scatter_(0, inv, n.double())
+    return float(per.sum()), uniq.shape[0]
+
+
+def _join_bound(args, m_cap: int, total):
+    """(bound ms, "bytes" or "operations", per-pair rows ms) of one
+    join_expand call on these tables.  The bound: the bytes the function
+    must move, each input read once (the pair indices, 16 bytes a pair; the
+    hashes of each distinct table row the pairs name, 8 bytes an entry up to
+    its read's nk, one row read once for both sides when the two tables are
+    one, with its id, table index and nk; the positions of the kept
+    matches, 4 bytes a side, or of those rows if fewer) and the outputs
+    written once (9 bytes a list slot and total), against the operations of
+    a merge of each pair's two rows (na + nb comparisons) and of the sort of
+    its kept matches.  Per-pair rows: the bytes of both rows' hashes and
+    positions for every pair (12 bytes an entry) with the same indices and
+    outputs, what a kernel that stages each pair's rows on its own moves;
+    it is not a bound for a launch whose pairs share rows through the
+    cache."""
+    rows, cols, row_ids, col_ids, row_tab, col_tab = args[:6]
+    hs_a, hs_b, nk = args[6], args[8], args[10]
+    wa, wb = hs_a.shape[1], hs_b.shape[1]
+    na = nk[row_ids[rows]].clamp(max=wa)
+    nb = nk[col_ids[cols]].clamp(max=wb)
     b = rows.shape[0]
-    nbytes = float(12 * (na + nb).sum()) + b * (56 + 9 * m_cap + 4) + 4
-    ops = float((2 * nb * torch.ceil(torch.log2(na + 1))).sum())
+    a_tab, b_tab = row_tab[rows], col_tab[cols]
+    if hs_a.data_ptr() == hs_b.data_ptr() and hs_a.stride() == hs_b.stride():
+        sides = [(torch.cat([a_tab, b_tab]), torch.cat([na, nb]))]
+    else:
+        sides = [(a_tab, na), (b_tab, nb)]
+    entries = n_rows = 0
+    for tab, n in sides:
+        e, r = _distinct_row_entries(tab, n)
+        entries, n_rows = entries + e, n_rows + r
+    kept = float(torch.clamp(total, max=m_cap).sum())
+    out_bytes = b * (9 * m_cap + 4) + 4
+    nbytes = (16 * b + 8 * entries + 20 * n_rows + min(8 * kept, 4 * entries)
+              + out_bytes)
+    ops = float((na + nb).double().sum())
     lg = np.log2(max(2, _pow2(m_cap)))
     ops += b * _pow2(m_cap) / 2 * lg * (lg + 1) / 2
     t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_INT32
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    pair_rows = float(12 * (na + nb).double().sum()) + b * 56 + out_bytes
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            pair_rows / PEAK_BYTES * 1e3)
+
+
+def _plain_slices(args, m_cap: int):
+    """Slices of one launch's pairs for the plain versions: as many pairs a
+    slice as the engine's launch rule gives their working set (the [B, W]
+    gathers of a whole launch would not fit)."""
+    from rattle_tpu_torch.cluster.bulk import launch_pairs
+    from rattle_tpu_torch.ops import kernels
+    rows = args[0]
+    n = rows.shape[0]
+    step = launch_pairs(n, kernels.score_pair_bytes(
+        kernels.join_expand_plain, rows, args[6].shape[1], args[8].shape[1],
+        m_cap))
+    return [slice(i, i + step) for i in range(0, n, step)]
+
+
+def _join_plain_sliced(args, m_cap: int):
+    """join_expand_plain over ``_plain_slices`` of the launch: (p1, p2,
+    total, valid, bound) as one call would give them."""
+    from rattle_tpu_torch.ops import kernels
+    outs = [kernels.join_expand_plain(args[0][sl], args[1][sl], *args[2:],
+                                      m_cap)
+            for sl in _plain_slices(args, m_cap)]
+    cat = [torch.cat(x) for x in zip(*(o[:4] for o in outs))]
+    return (*cat, torch.stack([o[4] for o in outs]).max(dim=0).values)
 
 
 def _join_check(what: str, args, m_cap: int):
-    """The kernel against the plain version on one chunk: p1, p2, total,
-    valid and bound all exact (overflow rows included: both keep the first
-    m_cap matches in b order).  Returns the kernel's outputs."""
+    """The kernel against the plain version (in slices) on one launch: p1,
+    p2, total, valid and bound all exact (overflow rows included: both keep
+    the first m_cap matches in b order).  Returns the kernel's outputs."""
     from rattle_tpu_torch.ops import kernels
     got = kernels.join_expand(*args, m_cap)
-    ref = kernels.join_expand_plain(*args, m_cap)
+    ref = _join_plain_sliced(args, m_cap)
     torch.cuda.synchronize()
     for name, g_, r_ in zip(("p1", "p2", "total", "valid", "bound"), got,
                             ref):
@@ -446,15 +545,29 @@ def _join_check(what: str, args, m_cap: int):
     return got
 
 
-def _decide_check(what: str, args):
-    """score_decide against its plain version from the same state: border,
-    the win matrix and the score cache exact.  Returns (border, wins,
-    decided)."""
+# score_decide's arguments that hold one entry a pair
+DECIDE_PER_PAIR = (0, 1, 4, 5, 6)
+
+
+def _decide_sliced(args, sl):
+    return [a[sl] if i in DECIDE_PER_PAIR else a for i, a in enumerate(args)]
+
+
+def _decide_plain_sliced(args, slices):
+    from rattle_tpu_torch.ops import kernels
+    return torch.cat([kernels.score_decide_plain(*_decide_sliced(args, sl))
+                      for sl in slices])
+
+
+def _decide_check(what: str, args, slices):
+    """score_decide against its plain version (in ``slices`` of the launch,
+    one after the other) from the same state: border, the win matrix and
+    the score cache exact.  Returns (border, wins, decided)."""
     from rattle_tpu_torch.ops import kernels
     state = [[a.clone() if isinstance(a, torch.Tensor) else a for a in args]
              for _ in range(2)]
     got = kernels.score_decide(*state[0])
-    ref = kernels.score_decide_plain(*state[1])
+    ref = _decide_plain_sliced(state[1], slices)
     torch.cuda.synchronize()
     check(torch.equal(got, ref), f"score_decide {what}: border differs")
     check(torch.equal(state[0][12], state[1][12]),
@@ -506,7 +619,7 @@ def _greedy_row(what: str, w: torch.Tensor, n_valid: int) -> dict:
                max_abs_err=0)
     print(f"  greedy_owner {what} K={w.shape[0]} n_valid={n_valid}: {seeds} "
           f"seeds; kernel {ms:.4f} ms ({ms * 1e3 / max(seeds, 1):.3f} us a "
-          f"seed), parent's path (plain) {plain_ms:.2f} ms, bound "
+          f"seed), plain {plain_ms:.2f} ms, bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}), exact")
     return row
 
@@ -515,52 +628,127 @@ def _greedy_row(what: str, w: torch.Tensor, n_valid: int) -> dict:
 GREEDY_RANDOM = ((4096, 4096, 0.002), (4096, 3000, 0.0005))
 
 
+def _jax_chunk(cap, wa: int, m_cap: int) -> int:
+    """The JAX engine's chunk of pairs for this class width and M tier."""
+    cls_i = cap.widths.index(wa)
+    tier = (128, 512, 2048).index(m_cap)
+    return JAX_SCORE_CHUNKS[cls_i][tier] if tier else JAX_COUNT_CHUNKS[cls_i]
+
+
+def _join_row(what: str, args, m_cap: int, plain_ms: float) -> dict:
+    """Time one join_expand call (lone calls, CUDA-event median) beside
+    its bound and the given plain time."""
+    from rattle_tpu_torch.ops import kernels
+    b = args[0].shape[0]
+    ms = time_ms(lambda: kernels.join_expand(*args, m_cap))
+    total = kernels.join_expand(*args, m_cap)[2]
+    bound_ms, by, pair_rows_ms = _join_bound(args, m_cap, total)
+    row = dict(chunk=what, shape=[b, args[6].shape[1], args[8].shape[1],
+                                  m_cap],
+               matches=int(torch.clamp(total, max=m_cap).sum()),
+               overflow_pairs=int((total > m_cap).sum()), ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=by, pair_rows_ms=pair_rows_ms, max_abs_err=0)
+    print(f"  join_expand {what} B={b}: {row['matches']} matches kept, "
+          f"{row['overflow_pairs']} pairs over M; kernel {ms:.4f} ms, plain "
+          f"(gathers + eager join) {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+          f"ms ({by}), {100 * bound_ms / ms:.2f}% of the bound; per-pair "
+          f"rows {pair_rows_ms:.5f} ms ({100 * pair_rows_ms / ms:.2f}%)")
+    return row
+
+
+def _decide_row(what: str, args, plain_ms: float, wins: int,
+                decided: int, border: int) -> dict:
+    from rattle_tpu_torch.ops import kernels
+    b = args[0].shape[0]
+    live = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    ms = time_ms(lambda: kernels.score_decide(*live))
+    nbytes = b * 57 + 2 * wins + decided + 8
+    row = dict(chunk=what, shape=[b], wins=wins, decided=decided,
+               border=border, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               max_abs_err=0)
+    print(f"  score_decide {what} B={b}: {wins} wins, {decided} decided, "
+          f"{border} border; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms (bytes), "
+          f"{100 * row['bound_ms'] / ms:.3f}% of the bound")
+    return row
+
+
 def phase_score_path(dev, cap):
-    """join_expand and score_decide against their plain versions (the
-    parent's eager chain) on the largest chunk of each (class width, M
-    tier) of the main path's first wave, join_expand on the adversarial
-    tables of utils/synth.join_cases, and greedy_owner on the wave's block
-    win matrix and on random ones at K = 4,096: every output exact."""
+    """join_expand and score_decide against their plain versions (eager
+    PyTorch chains) on every launch of the main path's first wave, at the
+    launch's own shape: the plain side runs in slices of the launch
+    (``_plain_slices``: a whole range's [B, W] gathers would not fit), and
+    the decision's slices one after the other on the same state.  The
+    largest launch of each (class width, M tier) is timed as a lone call at
+    its shape and at the JAX engine's chunk of the same class and tier (its
+    first pairs), each beside its bound; the join kernel's launch shape
+    (threads a pair, pairs a CTA, shared memory, CTAs an SM) is printed for
+    each.  join_expand is also held on the adversarial tables of
+    utils/synth.join_cases, and greedy_owner on the wave's block win
+    matrix and on random ones at K = 4,096: every output exact."""
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.utils.synth import join_cases
-    joins, decides = [], []
-    for (wa, m_cap), (b, args) in sorted(cap.join.items()):
-        what = f"main path W={wa} M={m_cap}"
-        p1, p2, total, valid, _bd = _join_check(what, args[:11], m_cap)
-        ms = time_ms(lambda: kernels.join_expand(*args[:11], m_cap))
-        plain_ms = time_ms(lambda: kernels.join_expand_plain(*args[:11],
-                                                             m_cap), reps=5)
-        bound_ms, by = _join_bound(args[:11], m_cap)
-        over = int((total > m_cap).sum())
-        joins.append(dict(chunk=what, shape=[b, wa, args[8].shape[1], m_cap],
-                          matches=int(torch.clamp(total, max=m_cap).sum()),
-                          overflow_pairs=over, ms=ms, plain_ms=plain_ms,
-                          library_ms=None, bound_ms=bound_ms, bound_by=by,
-                          max_abs_err=0))
-        print(f"  join_expand {what} B={b}: {joins[-1]['matches']} matches "
-              f"kept, {over} pairs over M; kernel {ms:.4f} ms, parent's path "
-              f"(gathers + eager join) {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.2f}% of the "
-              "bound, exact")
-        dargs = cap.decide.get((wa, m_cap))
-        if dargs is None:
-            continue
-        border, wins, decided = _decide_check(what, dargs)
-        live = [a.clone() if isinstance(a, torch.Tensor) else a
-                for a in dargs]
-        ms = time_ms(lambda: kernels.score_decide(*live))
-        plain_ms = time_ms(lambda: kernels.score_decide_plain(*live))
-        nbytes = b * 57 + 2 * wins + decided + 8
-        decides.append(dict(chunk=what, shape=[b], wins=wins,
-                            decided=decided, border=int(border.sum()), ms=ms,
-                            plain_ms=plain_ms, library_ms=None,
-                            bound_ms=nbytes / PEAK_BYTES * 1e3,
-                            bound_by="bytes", max_abs_err=0))
-        print(f"  score_decide {what} B={b}: {wins} wins, {decided} decided, "
-              f"{decides[-1]['border']} border; kernel {ms:.4f} ms, parent's "
-              f"path {plain_ms:.4f} ms, bound "
-              f"{decides[-1]['bound_ms']:.5f} ms (bytes), exact")
-    check(joins and decides, "phase 3b: the first wave captured no chunk")
+    joins, decides, n_launches = [], [], 0
+    shapes = {f"W={w} M={m}": kernels.join_expand_config(w, w, m)
+              for w in cap.widths for m in (128, 512, 2048)}
+    print("  join_expand launch shapes at the engine's class widths: "
+          + "; ".join(f"{k}: {c['threads_a_pair']} threads a pair, "
+                      f"{c['pairs_a_cta']} a CTA, {c['smem_bytes']} B, "
+                      f"{c['ctas_an_sm']} CTAs an SM"
+                      for k, c in shapes.items()))
+    for (wa, m_cap), launches in sorted(cap.join.items()):
+        what = f"W={wa} M={m_cap}"
+        cfg = kernels.join_expand_config(wa, launches[0][8].shape[1], m_cap)
+        print(f"  join_expand {what}: {len(launches)} launch(es) of "
+              f"{[a[0].shape[0] for a in launches]} pairs; launch shape "
+              f"{cfg}")
+        big = max(range(len(launches)), key=lambda i: launches[i][0].shape[0])
+        dlist = cap.decide.get((wa, m_cap), [])
+        check(len(dlist) == len(launches),
+              f"phase 3b {what}: {len(launches)} joins, {len(dlist)} "
+              "decisions")
+        for li, (args, dargs) in enumerate(zip(launches, dlist)):
+            args = args[:11]
+            n_launches += 1
+            _join_check(f"{what} launch {li}", args, m_cap)
+            slices = _plain_slices(args, m_cap)
+            border, wins, decided = _decide_check(f"{what} launch {li}",
+                                                  dargs, slices)
+            if li != big:
+                continue
+            b = args[0].shape[0]
+            plain_ms = time_ms(lambda: _join_plain_sliced(args, m_cap),
+                               reps=1, warmup=0)
+            joins.append(_join_row(f"main path {what} launch", args, m_cap,
+                                   plain_ms))
+            joins[-1]["plain_slices"] = len(slices)
+            plain_ms = time_ms(lambda: _decide_plain_sliced(
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in dargs], slices), reps=1, warmup=0)
+            decides.append(_decide_row(f"main path {what} launch", dargs,
+                                       plain_ms, wins, decided,
+                                       int(border.sum())))
+            bc = _jax_chunk(cap, wa, m_cap)
+            if bc >= b:
+                continue
+            sub = [args[0][:bc], args[1][:bc], *args[2:]]
+            plain_ms = time_ms(lambda: kernels.join_expand_plain(*sub,
+                                                                 m_cap),
+                               reps=5)
+            joins.append(_join_row(f"main path {what} JAX chunk", sub,
+                                   m_cap, plain_ms))
+            dsub = _decide_sliced(dargs, slice(0, bc))
+            _b, wins, decided = _decide_check(f"{what} JAX chunk", dsub,
+                                              [slice(0, bc)])
+            plain_ms = time_ms(lambda: kernels.score_decide_plain(*[
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in dsub]))
+            decides.append(_decide_row(f"main path {what} JAX chunk", dsub,
+                                       plain_ms, wins, decided,
+                                       int(_b.sum())))
+    check(joins and decides, "phase 3b: the first wave captured no launch")
     names = []
     for name, arrs, m_cap in join_cases():
         args = [torch.from_numpy(a).to(dev) for a in arrs]
@@ -579,11 +767,12 @@ def phase_score_path(dev, cap):
             torch.int8)
         greedy.append(_greedy_row(f"random p={dens}", w, n_valid))
     print("phase 3b score path: join_expand and score_decide exact against "
-          f"the parent's eager chain on {len(joins)} main-path chunks, "
-          f"join_expand on {len(names)} adversarial tables, greedy_owner on "
-          f"{len(cap.greedy)} main-path block(s) and {len(GREEDY_RANDOM)} "
-          "random K=4096 matrices")
-    return dict(join_expand=joins, score_decide=decides, greedy_owner=greedy)
+          f"their plain versions on all {n_launches} launches of the first "
+          f"wave, join_expand on {len(names)} adversarial tables, "
+          f"greedy_owner on {len(cap.greedy)} main-path block(s) and "
+          f"{len(GREEDY_RANDOM)} random K=4096 matrices")
+    return dict(join_expand=joins, score_decide=decides, greedy_owner=greedy,
+                join_shapes=shapes)
 
 
 POA_CAPTURE_STEP = 12
@@ -791,7 +980,7 @@ def _host_rescores() -> int:
 @contextlib.contextmanager
 def _plain_score_path():
     """cluster/bulk.py's score-path kernels pointed at their plain versions
-    (the parent's eager chain) for the duration of the block: a switch of
+    for the duration of the block: a switch of
     this script only, not of the package."""
     from rattle_tpu_torch.ops import kernels
     with _bulk_names(**{k: getattr(kernels, k + "_plain")
@@ -903,19 +1092,24 @@ def phase_main_path():
     reads_c = synthetic_reads(MAIN_READS, MAIN_FAMILIES, MAIN_SEED,
                               revcomp=True)
     cdna, fq_c, clusters_c = _main_run("cdna", reads_c, [])
+    iso, _fq_i, clusters_i = _main_run("iso", reads, ["--rna", "--iso"])
     rna["profiled"] = _api_launches("rna", fq, ["--rna"])
     cdna["profiled"] = _api_launches("cdna", fq_c, [])
     rna["plain_score_path"] = _plain_parity("rna", reads, ["--rna"],
                                             clusters_out)
     cdna["plain_score_path"] = _plain_parity("cdna", reads_c, [], clusters_c)
-    print(f"phase 5 main path: cluster --rna and cDNA cluster on {MAIN_READS} "
-          f"reads of {MAIN_FAMILIES} families on cuda, every read in one "
-          "cluster, every cluster kernel launched in each run "
-          f"({rna['profiled']['launch_calls']} / "
-          f"{cdna['profiled']['launch_calls']} CUDA launch calls), "
-          "clusters.out byte-identical with the score path on its plain "
-          "versions")
-    return dict(rna=rna, cdna=cdna), fq, clusters_out
+    iso["plain_score_path"] = _plain_parity("iso", reads, ["--rna", "--iso"],
+                                            clusters_i)
+    print(f"phase 5 main path: cluster --rna, cDNA cluster and cluster --rna "
+          f"--iso on {MAIN_READS} reads of {MAIN_FAMILIES} families on cuda, "
+          "every read in one cluster, every cluster kernel launched in each "
+          f"run ({rna['profiled']['launch_calls']} / "
+          f"{cdna['profiled']['launch_calls']} CUDA launch calls in --rna / "
+          "cDNA), clusters.out byte-identical with the score path on its "
+          "plain versions; peak device memory "
+          f"{rna['peak_mem_gib']:.2f} / {cdna['peak_mem_gib']:.2f} / "
+          f"{iso['peak_mem_gib']:.2f} GiB")
+    return dict(rna=rna, cdna=cdna, iso=iso), fq, clusters_out
 
 
 def _fastq_count(path: str) -> int:
@@ -1381,8 +1575,9 @@ def main() -> int:
                "rattle_tpu_torch/csrc/poa_align.cu",
                "rattle_tpu/ops/poa_pallas.py:556"),
         # the score path (the parts of JAX's jitted score and replay
-        # programs); each row is the main path's first chunk of the count
-        # pass (the widest chunk, the narrowest class) and its block replay
+        # programs); the join and decision rows are the first wave's
+        # largest launch at W = 2048, M = 128 (the narrowest class of the
+        # count pass), the replay row its block
         record("join_expand", score_rows["join_expand"][0],
                "rattle_tpu_torch/csrc/join_expand.cu",
                "rattle_tpu/cluster/bulk.py:245"),

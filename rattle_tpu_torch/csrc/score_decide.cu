@@ -1,4 +1,4 @@
-// score_decide: the decision of one chunk of scored read pairs
+// score_decide: the decision of scored read pairs
 // (cluster.cpp:24-37), from each pair's LIS score, variance and match count.
 //
 // The counterpart of the decision half of
@@ -24,7 +24,10 @@
 //
 // Bound: bytes, about 50 a pair (indices, ids, the per-pair inputs, the
 // length and score tables, border, and the wins' and outcomes' bytes); a
-// thread a pair.
+// thread a pair, neighbouring threads on neighbouring pairs, so every load
+// of a per-pair input is coalesced.  Its device work is a few microseconds
+// a launch, so its cost is the launch: the caller launches it once over all
+// the pairs of a score-path launch (up to a whole (class, tier) range).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,7 +87,8 @@ extern "C" int score_decide_launch(
     void* cache, long long cache_n, int n_pairs, int m_cap, void* border,
     void* stream) {
   if (n_pairs <= 0) return 0;
-  const int grid = (n_pairs + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(
+      (static_cast<long long>(n_pairs) + kThreads - 1) / kThreads);
   score_decide_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(rows), static_cast<const int64_t*>(cols),

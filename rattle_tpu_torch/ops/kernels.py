@@ -443,7 +443,7 @@ def join_expand_plain(rows, cols, row_ids, col_ids, row_tab, col_tab,
                       bound: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """Plain version: the rows of both tables gathered into [B, W] copies,
-    then ops/join_device.join_expand (the eager chain ``score_chunk`` ran
+    then ops/join_device.join_expand (the eager chain the score path ran
     before the kernel).  ``total`` and ``bound`` as in ``join_expand``."""
     a_ids = row_ids[rows]
     b_ids = col_ids[cols]
@@ -473,10 +473,11 @@ def join_expand(rows: torch.Tensor, cols: torch.Tensor,
                 total: Optional[torch.Tensor] = None,
                 bound: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ...]:
-    """The common-k-mer join of B read pairs, each read from its two table
-    rows in place.  Pair i joins a = row_ids[rows[i]] (row row_tab[rows[i]]
-    of hs_a/ps_a) with b = col_ids[cols[i]] (row col_tab[cols[i]] of
-    hs_b/ps_b), over their first nk[a] / nk[b] entries.
+    """The common-k-mer join of B read pairs (any B below 2^31: a whole
+    (class, tier) range of a wave in one launch), each read from its two
+    table rows in place.  Pair i joins a = row_ids[rows[i]] (row
+    row_tab[rows[i]] of hs_a/ps_a) with b = col_ids[cols[i]] (row
+    col_tab[cols[i]] of hs_b/ps_b), over their first nk[a] / nk[b] entries.
 
     rows, cols [B] and row_ids/row_tab, col_ids/col_tab int64; hs_* [*, W*]
     int64 hashes < 2^32 sorted by (hash, pos) over each read's first nk
@@ -513,6 +514,8 @@ def join_expand(rows: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"join_expand: m_cap must be in [1, {LIS_MAX_M}], "
                          f"got {m_cap}")
     b = rows.shape[0]
+    if b >= 2 ** 31:
+        raise ValueError(f"join_expand: {b} pairs, the kernel takes < 2^31")
     if total is not None:
         _check("join_expand total", total, torch.int32, 1, dev, b)
     if bound is not None:
@@ -546,11 +549,42 @@ def join_expand(rows: torch.Tensor, cols: torch.Tensor,
 join_expand.launches = 0
 
 
+def score_pair_bytes(join, rows: torch.Tensor, wa: int, wb: int,
+                     m_cap: int) -> int:
+    """The bytes a pair holds in one score-path launch (``join``, then
+    lis_filter and score_decide over B pairs) at these table widths and
+    m_cap, for sizing launches.  On the card: the [B, m_cap] match lists
+    (p1, p2 int32 and valid, 9 bytes a slot) and the launch's [B] outputs
+    and slices (total, border, lis_filter's four, the pair indices).  The
+    plain versions (``join`` is join_expand_plain, or ``rows`` lie on the
+    CPU) also gather both table rows into [B, W] int64 / int32 copies and
+    run the join's [B, W] int64 searches and prefix sums (~64 bytes an
+    entry of the two rows in all), and the plain join's and LIS scans'
+    [B, m_cap] temporaries (~160 bytes a slot)."""
+    if join is join_expand_plain or not _on_card(rows):
+        return 64 * (wa + wb) + 160 * m_cap + 48
+    return 9 * m_cap + 48
+
+
+def join_expand_config(wa: int, wb: int, m_cap: int) -> dict:
+    """On the card: the launch shape the join kernel takes at these widths
+    and m_cap (threads a pair, pairs a CTA, rows staged in shared memory or
+    not, dynamic shared memory a CTA, CTAs resident an SM)."""
+    fn = _ext.load("join_expand").join_expand_config
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    _raise_on(fn(wa, wb, m_cap, ctypes.cast(out, ctypes.c_void_p)),
+              "join_expand_config")
+    return dict(threads_a_pair=out[0], pairs_a_cta=out[1],
+                staged=bool(out[2]), smem_bytes=out[3], ctas_an_sm=out[4])
+
+
 def score_decide_plain(rows, cols, row_ids, col_ids, bases, var, total, lens,
                        sc_tab, t_v, var_band, strand_val: int, w, cache,
                        cache_n: int, m_cap: int,
                        border: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: the eager decision ``score_chunk`` ran before the
+    """Plain version: the eager decision the score path ran before the
     kernel.  Same arguments and effects as ``score_decide``."""
     a_ids = row_ids[rows]
     b_ids = col_ids[cols]
@@ -591,9 +625,12 @@ def score_decide(rows: torch.Tensor, cols: torch.Tensor,
     rows, cols [B] int64 into row_ids / col_ids (int64 global ids); bases,
     total [B] int32, var [B] float32; lens, sc_tab int32; t_v, var_band
     float32 scalar tensors; w [R, C] int8; cache uint8 [cache_n^2] or None.
-    The (row, col) pairs, and the (a, b) pairs, of one call are unique."""
+    The (row, col) pairs, and the (a, b) pairs, of one call are unique.  One
+    launch takes any B below 2^31, a thread a pair."""
     dev = rows.device
     b = rows.shape[0]
+    if b >= 2 ** 31:
+        raise ValueError(f"score_decide: {b} pairs, the kernel takes < 2^31")
     _check("score_decide rows", rows, torch.int64, 1, dev)
     _check("score_decide cols", cols, torch.int64, 1, dev, b)
     _check("score_decide row_ids", row_ids, torch.int64, 1, dev)

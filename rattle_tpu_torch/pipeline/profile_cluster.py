@@ -14,7 +14,8 @@ lis_filter and bv_common), lis_filter's launches and device time split by
 tier and by (M, B, bound bucket) (``lis_split``), and the top operators by
 device and by host time.  The last line is one JSON object with these
 numbers.  ``--wall-only`` runs ``cluster`` WALL_RUNS more times unprofiled
-instead (the first run builds the kernels) and prints their wall times.
+instead (the first run builds the kernels) and prints their wall times and
+the peak device memory they allocated.
 
 The imports are absolute, so the script also times another checkout of the
 package: ``PYTHONPATH=<checkout> python <this file> --wall-only`` run from
@@ -168,10 +169,12 @@ def main() -> int:
         kernels.reset_launches()
         wall = _run(fq, tmp, flags)
         if "--wall-only" in sys.argv[1:]:
+            torch.cuda.reset_peak_memory_stats()
             walls = [_run(fq, tmp, flags) for _ in range(WALL_RUNS)]
             print(json.dumps({
                 "device": torch.cuda.get_device_name(0), "reads": MAIN_READS,
-                "flags": flags, "first_wall_s": wall, "walls_s": walls}))
+                "flags": flags, "first_wall_s": wall, "walls_s": walls,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
             return 0
         stages = dict(metrics.GLOBAL.stages)
         launches = kernels.launches()

@@ -275,7 +275,9 @@ def lis_cases(b: int, m: int, seed: int = 6):
 
 
 JOIN_CASES = ("one_hash_rows", "nk_one", "unequal_widths", "k16_high_hashes",
-              "wide_class3", "wider_than_shared")
+              "wide_class3", "wider_than_shared", "straddling_runs")
+# the hash of straddling_runs' runs, mid-way in its hash space
+RUN_HASH = 1 << 19
 
 
 def _join_side(rng: np.random.Generator, b: int, width: int, nk: np.ndarray,
@@ -293,6 +295,22 @@ def _join_side(rng: np.random.Generator, b: int, width: int, nk: np.ndarray,
     return hs, ps
 
 
+def _run_hashes(rng: np.random.Generator, rows: int, space: int):
+    """A ``hashes`` callable for ``_join_side`` that gives row r distinct
+    hashes below ``space`` but a run of RUN_HASH: 40-90 entries for odd r,
+    2-5 for even r."""
+    row = iter(range(rows))
+
+    def hashes(n):
+        r = next(row)
+        run = int(rng.integers(40, 91) if r % 2 else rng.integers(2, 6))
+        h = rng.choice(np.setdiff1d(np.arange(space), [RUN_HASH]), n,
+                       replace=False)
+        h[:min(run, n)] = RUN_HASH
+        return h
+    return hashes
+
+
 def join_cases(b: int = 8, seed: int = 16, wide: bool = True):
     """[(name, args, m_cap)] in ``JOIN_CASES`` order: the arguments of
     ``ops.kernels.join_expand`` before m_cap, as numpy arrays (rows, cols,
@@ -307,7 +325,13 @@ def join_cases(b: int = 8, seed: int = 16, wide: bool = True):
       value) among the real ones;
     * wide_class3: a class-3 width of 6144, above every fixed class;
     * wider_than_shared: 60,000 entries a row, wider than a block's shared
-      memory holds (left out with ``wide=False``).
+      memory holds (left out with ``wide=False``);
+    * straddling_runs: full 1024-wide rows of distinct hashes but one,
+      RUN_HASH, repeated over a run of 40-90 entries in odd rows and 2-5 in
+      even ones, so that a run is longer than a merge-path share of a pair
+      split over 64 threads (2048 / 64 = 32 entries of both rows) and spans
+      two or more shares; a long run against a short one fits m_cap = 512,
+      two long ones overflow it.
 
     Pairs repeat rows and columns; a-side reads have ids 0..b-1 and b-side
     reads b..2b-1, whose tables rows are listed in reverse."""
@@ -319,12 +343,18 @@ def join_cases(b: int = 8, seed: int = 16, wide: bool = True):
         wa, wb, m_cap = {"unequal_widths": (1024, 4096, 512),
                          "k16_high_hashes": (2048, 2048, 2048),
                          "wide_class3": (6144, 6144, 2048),
-                         "wider_than_shared": (60000, 60000, 2048)}.get(
+                         "wider_than_shared": (60000, 60000, 2048),
+                         "straddling_runs": (1024, 1024, 512)}.get(
             name, (1024, 1024, 128))
         nb = 4 if name == "wider_than_shared" else b
+        hashes_b = None
         if name == "one_hash_rows":
             nk_a, nk_b = np.full(nb, wa), np.full(nb, wb)
             hashes = lambda n: np.full(n, 12345)  # noqa: E731
+        elif name == "straddling_runs":
+            nk_a, nk_b = np.full(nb, wa), np.full(nb, wb)
+            hashes, hashes_b = (_run_hashes(rng, nb, 2 * RUN_HASH)
+                                for _ in range(2))
         elif name == "nk_one":
             nk_a = nk_b = np.ones(nb, np.int64)
             hashes = lambda n: rng.integers(0, 3, n)  # noqa: E731
@@ -340,7 +370,7 @@ def join_cases(b: int = 8, seed: int = 16, wide: bool = True):
             else:
                 hashes = lambda n, s=2 * wa: rng.integers(0, s, n)  # noqa
         hs_a, ps_a = _join_side(rng, nb, wa, nk_a, hashes)
-        hs_b, ps_b = _join_side(rng, nb, wb, nk_b, hashes)
+        hs_b, ps_b = _join_side(rng, nb, wb, nk_b, hashes_b or hashes)
         nk = np.concatenate([nk_a, nk_b]).astype(np.int32)
         hs_b, ps_b = hs_b[::-1].copy(), ps_b[::-1].copy()
         ids = np.arange(nb, dtype=np.int64)

@@ -287,3 +287,87 @@ def test_score_decide_plain_matches_jax_score_body(monkeypatch):
         np.testing.assert_array_equal(w.numpy(), np.asarray(w_ref))
         np.testing.assert_array_equal(cache.numpy(), np.asarray(cache_ref))
         assert border.any() and (w.numpy() != w0).any()
+
+
+@pytest.mark.parametrize("budget", ["one_pair", "37_pairs"])
+def test_engine_range_launches_cut_by_byte_budget(monkeypatch, tmp_path,
+                                                  budget):
+    """A LAUNCH_BYTES so small that (class, tier) ranges are cut into several
+    launches, mid-range, at the first M tier and at the next: every launch
+    takes at least one pair, a range's launches take its pairs once, and
+    clusters.out is the oracle's byte for byte and the JAX engine's
+    clusters."""
+    from rattle_tpu_torch.ops import kernels
+    seqs = _families(10, n_fam=6, per=(8, 12), lo=260, hi=400, err=0.05)
+    params, jparams = _params(is_rna=True)
+    eng = BulkClusterEngine(seqs, params, device="cpu")
+    assert len(seqs) >= 48 and len(eng.m_ladder) >= 2
+    w0 = eng._cls_widths[0]
+    monkeypatch.setattr(bulk, "LAUNCH_BYTES", 1 if budget == "one_pair" else
+                        37 * kernels.score_pair_bytes(
+                            kernels.join_expand, torch.zeros(1), w0, w0,
+                            eng.m_ladder[0]))
+    ranges = []            # (m_cap, pairs, [pairs of each launch])
+    join, score_range = bulk.join_expand, eng._score_range
+
+    def counted(rows, *a, **kw):
+        ranges[-1][2].append(rows.shape[0])
+        return join(rows, *a, **kw)
+
+    def ranged(rows, cols, cls_i, m_cap, *a):
+        ranges.append((m_cap, rows.shape[0], []))
+        return score_range(rows, cols, cls_i, m_cap, *a)
+
+    monkeypatch.setattr(bulk, "join_expand", counted)
+    monkeypatch.setattr(eng, "_score_range", ranged)
+    paths = {name: str(tmp_path / name) for name in ("engine", "oracle")}
+    got = eng.cluster()
+    write_clusters(got, paths["engine"])
+    write_clusters(oracle.cluster_reads(seqs, params), paths["oracle"])
+    with open(paths["engine"], "rb") as a, open(paths["oracle"], "rb") as b:
+        assert a.read() == b.read()
+    assert _sig(got) == _sig(JaxEngine(seqs, jparams).cluster())
+    for _m, n, launches in ranges:
+        assert sum(launches) == n and min(launches) >= 1
+    cut = {m for m, _n, launches in ranges if len(launches) > 1}
+    assert set(eng.m_ladder[:2]) <= cut
+
+
+def test_launch_pairs_rule(monkeypatch):
+    """``bulk.launch_pairs`` at ``kernels.score_pair_bytes``: never 0
+    pairs, a budget of LAUNCH_BYTES, and on the card fewer than 2^31 pairs
+    (the kernels' int pair index) whatever the range; an 800,000-pair range
+    at M = 128 is one launch on the card, while the plain versions (on the
+    CPU, or join_expand_plain on the card) keep their gathers and
+    temporaries within the budget at a few thousand pairs."""
+    from rattle_tpu_torch.ops import kernels
+    for n in (1, 15, 16, 17, 1000, 10 ** 6, 3 * 10 ** 9):
+        for pair_bytes in (1, 7, 1200, 10 ** 6, 10 ** 12):
+            step = bulk.launch_pairs(n, pair_bytes)
+            assert 1 <= step <= n
+            if step > 1:
+                assert step * pair_bytes <= bulk.LAUNCH_BYTES
+    assert bulk.launch_pairs(10 ** 6, 10 ** 12) == 1
+    rows = torch.zeros(1, dtype=torch.int64)
+    plain = {}
+    for wa, wb, m in ((1024, 1024, 128), (2048, 2048, 512),
+                      (3072, 3072, 2048), (60000, 60000, 2048)):
+        plain[wa, wb, m] = kernels.score_pair_bytes(kernels.join_expand, rows,
+                                                    wa, wb, m)
+        step = bulk.launch_pairs(10 ** 6, plain[wa, wb, m])
+        gathered = 12 * (wa + wb) + 9 * m          # rows and lists alone
+        assert plain[wa, wb, m] >= gathered
+        assert step * plain[wa, wb, m] <= bulk.LAUNCH_BYTES
+        assert step >= 64 and step * gathered <= bulk.LAUNCH_BYTES
+    # the card's rule, with rows that count as on the card
+    monkeypatch.setattr(kernels, "_on_card", lambda t: True)
+    card = kernels.score_pair_bytes(kernels.join_expand, rows, 2048, 2048,
+                                    128)
+    assert card < plain[1024, 1024, 128]
+    assert bulk.launch_pairs(800_000, card) == 800_000
+    least = kernels.score_pair_bytes(kernels.join_expand, rows, 1, 1, 1)
+    assert bulk.launch_pairs(3 * 10 ** 9, least) < 2 ** 31
+    for key, nbytes in plain.items():
+        # the plain switch on the card sizes for the plain versions
+        assert kernels.score_pair_bytes(kernels.join_expand_plain, rows,
+                                        *key) == nbytes

@@ -14,7 +14,7 @@ from rattle_tpu.ops.similarity import _variance
 from rattle_tpu_torch.ops import kernels
 from rattle_tpu_torch.ops.join_device import join_expand
 from rattle_tpu_torch.ops.similarity import variance
-from rattle_tpu_torch.utils.synth import JOIN_CASES, join_cases
+from rattle_tpu_torch.utils.synth import JOIN_CASES, RUN_HASH, join_cases
 
 # the plain join is many small torch ops; the run has several workers
 torch.set_num_threads(1)
@@ -229,3 +229,35 @@ def test_join_kernel_wrapper_adversarial_tables(name):
     assert int(out[4]) == n_valid.max()
     if name == "one_hash_rows":
         assert (total == 1024 * 1024).all()
+
+
+def test_join_plain_straddling_runs_matches_jax():
+    """``join_expand_plain`` on ``join_cases``' straddling_runs: one hash
+    repeated over a run longer than a merge-path share (both rows of a pair
+    split over 64 threads), in the b row or in the a row, against JAX's
+    gathers + ``merge_join_expand``: p1 and p2 exact where the pair fits,
+    total, valid and bound always (an overflowing pair keeps the first
+    m_cap matches in b order on the card, which chip_smoke.py holds)."""
+    (args, m_cap), = [(a, m) for n, a, m in join_cases(8, wide=False)
+                      if n == "straddling_runs"]
+    rows, cols, row_ids, col_ids, row_tab, col_tab, hs_a, ps_a, hs_b, ps_b, \
+        nk = args
+    a_t, b_t = row_tab[rows], col_tab[cols]
+    run_a = (hs_a[a_t] == RUN_HASH).sum(axis=1)
+    run_b = (hs_b[b_t] == RUN_HASH).sum(axis=1)
+    share = -(-(hs_a.shape[1] + hs_b.shape[1]) // 64)
+    out = kernels.join_expand_plain(*(torch.from_numpy(a) for a in args),
+                                    m_cap)
+    total = out[2].numpy()
+    fits = total <= m_cap
+    # a run spans two shares in a fitting pair, on each side, and one pair
+    # overflows
+    assert (fits & (run_b > share)).any() and (fits & (run_a > share)).any()
+    assert (~fits).any()
+    ref = merge_join_expand(
+        jnp.asarray(hs_a[a_t].astype(np.uint32)), jnp.asarray(ps_a[a_t]),
+        jnp.asarray(np.minimum(nk[row_ids[rows]], hs_a.shape[1])),
+        jnp.asarray(hs_b[b_t].astype(np.uint32)), jnp.asarray(ps_b[b_t]),
+        jnp.asarray(np.minimum(nk[col_ids[cols]], hs_b.shape[1])), m_cap)
+    _check_id_join(out, ref, m_cap)
+    assert (total >= run_a * run_b).all()
