@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card:
     python3 chip_smoke.py
 
 Phases, each ending in one summary line:
-  1. device and build: the card's name and power limit; the six CUDA
+  1. device and build: the card's name and power limit; the eight CUDA
      kernels and the tensor-core rate probe (csrc/mma_rate.cu) compiled with
      nvcc from rattle_tpu_torch/csrc (all at once);
   2. bv_common against its plain version, exactly, at the main path's
@@ -38,11 +38,23 @@ Phases, each ending in one summary line:
      launch shape and occupancy;
   4. poa_align against its plain version, exactly (best score, move count
      and the packed moves), on read steps captured from pack groups at
-     W = 1024, 2048 and 4096, with an empty-graph lane, an inactive lane
-     and a lane whose read is unrelated to its graph, with the time a rank
+     W = 1024, 2048 and 4096, called as the engine calls it (the read and
+     its length in place in the pack's tensors, activity from the step,
+     n_reads and fallback), with an empty-graph lane, a lane past its last
+     read, a fallen-back lane and a lane whose read is unrelated to its
+     graph, with the time a rank
      and the DP / traceback split of the slowest lane (the kernel's
      nanosecond stamps); and on the adversarial graphs of
      rattle_tpu_torch/utils/synth.poa_cases at W = 1024 and 4096;
+ 4b. poa_thread and poa_rerank (the rest of the pack engine's read step)
+     against their plain versions, every state field exact after every
+     read step of a group at W = 1024, 2048 and 4096 whose lanes are noisy
+     packs, a pack that goes idle, an empty lane, unrelated reads and one
+     lane for each fallback cause (node, predecessor and group cap, each
+     checked); then timed as lone calls at the main path's lane counts
+     (256 / 128 / 64 lanes) after 12 read steps, beside their plain
+     versions and their bounds (phase 6 holds them on the main path's own
+     groups too);
   5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) and ``cluster --rna
@@ -57,14 +69,23 @@ Phases, each ending in one summary line:
      kernel run's byte for byte;
   6. the correct path: ``correct`` on the ``--rna`` run's reads and
      clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
-     three widths), then ``polish --rna --summary`` on its consensi.fq;
+     three widths; one launch of each of poa_align, poa_thread and
+     poa_rerank a read step, its t_steps_s); the run's largest group at
+     each width (its uploads and step arguments kept by hooks on the
+     engine) is stepped again with poa_thread and poa_rerank against their
+     plain versions, every state field exact after every step; the run
+     again under torch.profiler for its CUDA launch calls, then ``polish
+     --rna --summary`` on its consensi.fq;
   7. parity on 256 reads of the same generator: ``cluster`` (rna, cDNA) and
      ``cluster --iso`` must write the same clusters.out as ``--oracle``, and
      so must ``cluster --rna`` with every borderline pair, then every pair
      over 128 matches, rescored on the host in f64;
-     ``correct`` on cuda the same three files as ``--poa-backend host``
-     with no pack on the host aligner; ``polish`` on cuda the same
-     transcriptome.fq as ``polish --oracle --poa-backend host``;
+     ``correct`` on cuda on the rna, cDNA and --iso clusters the same
+     three files as ``--poa-backend host`` with no pack on the host
+     aligner (the host runs are processes of their own, started as soon
+     as their clusters exist and held to the device runs after phase 8);
+     ``polish`` on cuda the same transcriptome.fq as ``polish --oracle
+     --poa-backend host`` on the same consensi;
   8. the multi-process cluster path: two ranks of one gloo process group
      (this script's ``--rank-worker``, started by parallel.launch.run_ranks
      under the RATTLE_* contract, both on cuda:0, each under one deadline)
@@ -83,10 +104,11 @@ Phases, each ending in one summary line:
 
 Launch counts are set to 0 just before each CLI run and read just after it
 (in each rank for phase 8); the kernels line reports the five cluster
-kernels from the ``--rna`` ``cluster`` run and poa_align from the
-``correct`` run.  With
-``--kernels-only`` the script stops after phase 4 (a quick build-and-compare
-of the kernels) and prints no final ``ok`` line.
+kernels from the ``--rna`` ``cluster`` run and poa_align, poa_thread and
+poa_rerank from the ``correct`` run.  With ``--kernels-only`` the script
+stops after phase 4b (a quick build-and-compare of the kernels) and prints
+no final ``ok`` line.  Every process the script starts is stopped by its
+end.
 
 Any failed check ends the run with a non-zero exit.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  Scratch
@@ -124,6 +146,8 @@ PEAK_INT32 = 33.5e12
 POA_OPS_PER_CELL = 32
 
 N_PARITY = 256
+# seconds phase 7's host correct runs may still take once phase 8 is done
+HOST_CORRECT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -169,7 +193,8 @@ def phase_device():
     for name in _ext.KERNELS:
         _ext.load(name)
     for name, (secs, log) in report.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
         print(f"  build {name}: {secs:.2f} s; {' | '.join(regs)}")
     print(f"phase 1 device+build: {smi[0]}; kernels built in {build_s:.2f} s "
           f"(compiled now: {sorted(report)})")
@@ -785,8 +810,9 @@ WIDTHS = [1024, 2048, 4096]
 def _capture_step(dev, w: int, n_cap: int, ref_len: int, seed: int):
     """Grow POA_LANES pack graphs for POA_CAPTURE_STEP read steps on the
     card through the engine's own ``_step`` (kernel included) and return the
-    inputs of the next step's ``poa_align`` call: a late step, so the graphs
-    hold multi-predecessor nodes."""
+    group's rank-space inputs of the next step's ``poa_align`` call (a late
+    step, so the graphs hold multi-predecessor nodes), its n_nodes, and its
+    reads, read lengths, n_reads and fallback as the engine holds them."""
     from rattle_tpu_torch.correct import pack_engine as pe
     from rattle_tpu_torch.utils.synth import _BASES, mutate
     rng = np.random.default_rng(seed)
@@ -807,11 +833,8 @@ def _capture_step(dev, w: int, n_cap: int, ref_len: int, seed: int):
     for t in range(POA_CAPTURE_STEP):
         pe._step(st, t, w_eff=w)
     check(int(st["fallback"].sum()) == 0, f"capture W={w}: a lane fell back")
-    pred_rows, npred, letters = pe.rank_space(st)
-    t = POA_CAPTURE_STEP
-    return [pred_rows, npred, letters, st["n_nodes"].clone(),
-            st["seqs"][:, t, :w].contiguous(), st["lens"][:, t].contiguous(),
-            torch.ones(POA_LANES, dtype=torch.int32, device=dev)]
+    return [*pe.rank_space(st)] + [st[f] for f in (
+        "n_nodes", "seqs", "lens", "n_reads", "fallback")]
 
 
 def _poa_adversarial(dev, w: int, n_cap: int):
@@ -824,16 +847,19 @@ def _poa_adversarial(dev, w: int, n_cap: int):
     pred_rows = np.zeros((b, n_cap, kernels.POA_PMAX), np.int32)
     npred = np.ones((b, n_cap), np.int32)
     letters = np.zeros((b, n_cap), np.int32)
-    n_nodes, seq_len, active = (np.zeros(b, np.int32) for _ in range(3))
+    n_nodes, seq_len, n_reads = (np.zeros(b, np.int32) for _ in range(3))
     seq = np.zeros((b, w), np.uint8)
     for li, (_name, g, read, act) in enumerate(cases):
         pr, npr, let, rank_nodes = synth.rank_arrays(g, n_cap)
         pred_rows[li], npred[li], letters[li] = pr, npr, let
         n_nodes[li] = len(rank_nodes)
         seq[li, :len(read)] = np.frombuffer(read.encode("ascii"), np.uint8)
-        seq_len[li], active[li] = len(read), act
+        seq_len[li], n_reads[li] = len(read), act
+    # a lone alignment: step 0, active while 0 < n_reads, no fallback
     args = [torch.from_numpy(x).to(dev) for x in
-            (pred_rows, npred, letters, n_nodes, seq, seq_len, active)]
+            (pred_rows, npred, letters, n_nodes, seq, seq_len)]
+    args += [0, torch.from_numpy(n_reads).to(dev),
+             torch.zeros(b, dtype=torch.int32, device=dev)]
     got = kernels.poa_align(*args)
     ref = kernels.poa_align_plain(*args)
     torch.cuda.synchronize()
@@ -851,18 +877,26 @@ def phase_poa(dev):
     from rattle_tpu_torch.ops import kernels
     rows = []
     for (w, n_cap, _lanes), ref_len in zip(CONFIGS, POA_REF_LENS):
-        args = _capture_step(dev, w, n_cap, ref_len, seed=w)
-        # three more lanes: lane 0 with an empty graph, lane 1 inactive,
-        # lane 2 with a read unrelated to its graph
-        args = [torch.cat([x, x[:3]]) for x in args]
-        e, i, u = POA_LANES, POA_LANES + 1, POA_LANES + 2
-        args[3][e] = 0
-        args[6][i] = 0
+        group = _capture_step(dev, w, n_cap, ref_len, seed=w)
+        # four more lanes: lane 0 with an empty graph, lane 1 past its last
+        # read, lane 2 with a read unrelated to its graph, lane 3 fallen
+        # back
+        group = [torch.cat([x, x[:4]]) for x in group]
+        pred_rows, npred, letters, n_nodes, seqs, lens, n_reads, fb = group
+        t = POA_CAPTURE_STEP
+        e, i, u, f = range(POA_LANES, POA_LANES + 4)
+        n_nodes[e] = 0
+        n_reads[i] = t
+        fb[f] = 4
         g = torch.Generator(device=dev).manual_seed(w)
-        slen_u = int(args[5][u])
-        args[4][u, :slen_u] = torch.tensor(
+        slen_u = int(lens[u, t])
+        seqs[u, t, :slen_u] = torch.tensor(
             list(b"ACGT"), dtype=torch.uint8, device=dev)[torch.randint(
                 0, 4, (slen_u,), generator=g, device=dev)]
+        # the read step as the engine calls it: the read and its length in
+        # place in the pack's tensors, activity from (t, n_reads, fallback)
+        args = [pred_rows, npred, letters, n_nodes, seqs[:, t, :w],
+                lens[:, t], t, n_reads, fb]
         b = args[2].shape[0]
         scratch = torch.empty(kernels.poa_scratch_elems(b, n_cap, w),
                               dtype=torch.int16, device=dev)
@@ -886,8 +920,8 @@ def phase_poa(dev):
             check(torch.equal(packed[li, :cnt], r_packed[li, :cnt]),
                   f"poa_align W={w}: lane {li} moves differ")
         nn, sl = args[3].tolist(), args[5].tolist()
-        check(counts[e] == 0 and counts[i] == 0 and best[e] == 0
-              and best[i] == 0, f"poa_align W={w}: empty/inactive lane "
+        check(all(counts[x] == 0 and best[x] == 0 for x in (e, i, f)),
+              f"poa_align W={w}: an empty, finished or fallen-back lane "
               "produced moves")
         for li in range(POA_LANES):
             check(counts[li] > sl[li] // 2, f"poa_align W={w}: lane {li} "
@@ -899,7 +933,7 @@ def phase_poa(dev):
         check(multi > 0, f"poa_align W={w}: no multi-predecessor rank")
         ms = time_ms(lambda: kernels.poa_align(*args, scratch=scratch),
                      reps=5, warmup=1)
-        live = [li for li in range(b) if nn[li] > 0 and li != i]
+        live = [li for li in range(b) if nn[li] > 0 and li not in (i, f)]
         cells = sum(nn[li] * (sl[li] + 1) for li in live)
         nbytes = (sum(nn[li] * (kernels.POA_PMAX + 2) * 4 + sl[li]
                       for li in live) + 12 * b + 4 * sum(counts) + 8 * b)
@@ -934,9 +968,298 @@ def phase_poa(dev):
         del scratch
     print("phase 4 poa_align: best, move count and packed moves exact "
           "against the plain version at W = 1024, 2048, 4096 (captured read "
-          f"step {POA_CAPTURE_STEP}; empty-graph, inactive and "
-          "unrelated-read lanes) and on the adversarial graphs at W = 1024 "
-          "and 4096")
+          f"step {POA_CAPTURE_STEP} as the engine calls it; empty-graph, "
+          "finished, fallen-back and unrelated-read lanes) and on the "
+          "adversarial graphs at W = 1024 and 4096")
+    return rows
+
+
+# phase 4b: letters of the adversarial reads beyond ACGT, each lane's own
+_RARE = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+STEP_CAPTURE = 12       # read steps the timed groups are grown for
+STEP_NAMES = ("pack", "pack", "pack", "pack", "idle_after_3", "empty",
+              "unrelated", "node_cap", "pred_cap", "group_cap")
+STEP_CAUSES = {"node_cap": 1, "pred_cap": 2, "group_cap": 4}
+
+
+def _step_lanes(w: int, ref_len: int, seed: int):
+    """The reads of phase 4b's group at width ``w``, one list a lane in
+    STEP_NAMES order: four packs of 13 noisy copies of a transcript (long
+    to short), a pack that goes idle after 3 reads, an empty lane, 3
+    unrelated full-width ACGT reads (long runs of new nodes), and one lane
+    for each fallback cause: 5 reads of w - 2 bases, each over two letters
+    of its own (node cap 4 w: the fifth passes it), 18 reads whose first
+    shared node takes a new predecessor from each (pred cap 16), 9 reads
+    with a new letter at one aligned column (group cap 8)."""
+    from rattle_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(seed)
+    packs = []
+    for _ in range(5):
+        ref = rng.choice(_BASES, int(ref_len * rng.uniform(0.9, 1.0)))
+        packs.append(sorted((mutate(rng, ref, 0.08)[:w - 2]
+                             for _ in range(13)), key=len, reverse=True))
+    shared = rng.choice(_BASES, 20)
+    left, right = rng.choice(_BASES, 15), rng.choice(_BASES, 15)
+    return packs[:4] + [
+        packs[4][:3], [],
+        [rng.choice(_BASES, w - 2) for _ in range(3)],
+        [rng.choice(_RARE[2 * i:2 * i + 2], w - 2) for i in range(5)],
+        [np.concatenate([_RARE[i:i + 3], shared]) for i in range(18)],
+        [np.concatenate([left, _RARE[i:i + 1], right]) for i in range(9)]]
+
+
+def _pack_group(dev, lanes, w: int, n_cap: int) -> dict:
+    """The pack engine's initial state of a group whose lanes read
+    ``lanes`` (lists of uint8 arrays) at width ``w``."""
+    from rattle_tpu_torch.correct import pack_engine as pe
+    b, r_max = len(lanes), max(len(x) for x in lanes)
+    seqs = np.zeros((b, r_max, w), np.uint8)
+    lens = np.zeros((b, r_max), np.int32)
+    for li, reads in enumerate(lanes):
+        for t, x in enumerate(reads):
+            seqs[li, t, :len(x)] = x
+            lens[li, t] = len(x)
+    n_reads = np.array([len(x) for x in lanes], np.int32)
+    return pe._init_state(
+        torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev),
+        torch.from_numpy(n_reads).to(dev), n_cap=n_cap,
+        tot_cap=max(int(lens.sum(axis=1).max()), 1))
+
+
+def _clone_state(st: dict) -> dict:
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _state_diff(got: dict, want: dict) -> list:
+    """Fields of two states of one group that differ over their defined
+    ranges: every node slot below N (the spare slot is left to the plain
+    version), the path below its spare slot, the keys below n_nodes."""
+    n = want["node_rank"].shape[1]
+    bad = []
+    for f, a in want.items():
+        g = got[f]
+        if f == "keys":
+            live = (torch.arange(n, device=a.device)[None, :]
+                    < want["n_nodes"][:, None])
+            same = bool(((g[:, :n] == a[:, :n]) | ~live).all())
+        elif f == "path":
+            same = torch.equal(g[:, :-1], a[:, :-1])
+        elif a.dim() >= 2 and a.shape[1] == n + 1:
+            same = torch.equal(g[:, :n], a[:, :n])
+        else:
+            same = torch.equal(g, a)
+        if not same:
+            bad.append(f)
+    return bad
+
+
+def _step_pair(st: dict, t: int, w: int, scratch=None, **scores):
+    """Read step ``t`` of a group: poa_align, then poa_thread and poa_rerank
+    on ``st`` and their plain versions on a copy of it.  Returns (the
+    alignment's outputs, the plain copy)."""
+    from rattle_tpu_torch.correct import pack_engine as pe
+    from rattle_tpu_torch.ops import kernels
+    aligned = pe._align(st, t, w, scratch=scratch, **scores)
+    plain = _clone_state(st)
+    kernels.poa_thread(st, t, w, *aligned)
+    kernels.poa_rerank(st)
+    kernels.poa_thread_plain(plain, t, w, *aligned)
+    kernels.poa_rerank_plain(plain)
+    return aligned, plain
+
+
+def _lone_ms(fn, states) -> float:
+    """Median CUDA-event time of ``fn(state)``, one call on each state."""
+    fn(states[0])
+    times = []
+    for state in states[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# bytes each step kernel must move, a live node or position at a time:
+# poa_thread reads a position's base and writes its path entry (5), gathers
+# a matched node's perm, letter, leader, group size and members, letters,
+# predecessors and group position (120), writes a new node's letter, leader,
+# member slot and key (16), and reads an old node's leader and group
+# position and writes its key (12); poa_rerank reads a live node's key,
+# group size, leader, member slot, predecessors, count and letter (84) and
+# writes its group position, rank, perm entry and rank-space row (88)
+THREAD_POS_BYTES = 125
+THREAD_NEW_BYTES = 16
+THREAD_OLD_BYTES = 12
+RERANK_NODE_BYTES = 172
+
+
+def _step_rows(dev, w: int, n_cap: int, lanes: int, ref_len: int):
+    """poa_thread and poa_rerank timed as lone calls at the main path's
+    lane count of width ``w`` (the config's cap), on a group of noisy packs
+    grown for STEP_CAPTURE read steps, beside their plain versions and
+    their bounds (bytes of the live nodes and positions)."""
+    from rattle_tpu_torch.correct import pack_engine as pe
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(w + 1)
+    group = []
+    for _ in range(lanes):
+        ref = rng.choice(_BASES, int(ref_len * rng.uniform(0.9, 1.0)))
+        group.append(sorted((mutate(rng, ref, 0.08)[:w - 2]
+                             for _ in range(STEP_CAPTURE + 1)), key=len,
+                            reverse=True))
+    st = _pack_group(dev, group, w, n_cap)
+    scratch = torch.empty(kernels.poa_scratch_elems(lanes, n_cap, w),
+                          dtype=torch.int16, device=dev)
+    for t in range(STEP_CAPTURE):
+        pe._step(st, t, w_eff=w, scratch=scratch)
+    t = STEP_CAPTURE
+    aligned = pe._align(st, t, w, scratch=scratch)
+    del scratch
+    torch.cuda.synchronize()
+    check(int(st["fallback"].sum()) == 0, f"phase 4b W={w}: a lane fell back")
+    nn_old = st["n_nodes"].cpu().numpy()
+    slen = st["lens"][:, t].cpu().numpy()
+    states = [_clone_state(st) for _ in range(6)]
+    ms_t = _lone_ms(lambda x: kernels.poa_thread(x, t, w, *aligned), states)
+    plain = _clone_state(st)
+    ms_tp = time_ms(lambda: kernels.poa_thread_plain(plain, t, w, *aligned),
+                    reps=1, warmup=0)
+    nn_new = states[0]["n_nodes"].cpu().numpy()
+    ms_r = _lone_ms(kernels.poa_rerank, states)
+    ms_rp = time_ms(lambda: kernels.poa_rerank_plain(plain), reps=1,
+                    warmup=0)
+    check(not _state_diff(states[-1], plain), f"phase 4b W={w}: timed "
+          f"group differs: {_state_diff(states[-1], plain)}")
+    t_bytes = int((slen * THREAD_POS_BYTES + (nn_new - nn_old)
+                   * THREAD_NEW_BYTES + nn_old * THREAD_OLD_BYTES).sum())
+    r_bytes = int(nn_new.sum()) * RERANK_NODE_BYTES
+    rows = []
+    for name, ms, plain_ms, nbytes in (("poa_thread", ms_t, ms_tp, t_bytes),
+                                       ("poa_rerank", ms_r, ms_rp, r_bytes)):
+        row = dict(kernel=name, shape=[lanes, n_cap, w], step=t,
+                   nodes=[int(nn_old.sum()), int(nn_new.sum())],
+                   max_nodes=int(nn_new.max()), read_bases=int(slen.sum()),
+                   bytes=nbytes, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   max_abs_err=0)
+        rows.append(row)
+        print(f"  {name} W={w} N={n_cap} lanes={lanes} step {t}: "
+              f"{int(nn_new.sum())} nodes (largest lane {row['max_nodes']}),"
+              f" {row['read_bases']} read bases; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms (bytes, "
+              f"{nbytes} B), {100 * row['bound_ms'] / ms:.2f}% of the bound")
+    return rows
+
+
+def phase_step(dev):
+    """poa_thread and poa_rerank against their plain versions, every state
+    field exact after every read step of an adversarial group at each width
+    (``_step_lanes``: noisy packs, an idle and an empty lane, unrelated
+    reads and one lane for each fallback cause, each cause checked), then
+    timed as lone calls at the main path's lane counts."""
+    from rattle_tpu_torch.correct.pack_engine import CONFIGS
+    rows = {}
+    for (w, n_cap, lanes), ref_len in zip(CONFIGS, POA_REF_LENS):
+        lane_reads = _step_lanes(w, ref_len, seed=w + 2)
+        st = _pack_group(dev, lane_reads, w, n_cap)
+        steps = st["seqs"].shape[1]
+        for t in range(steps):
+            _aligned, plain = _step_pair(st, t, w)
+            bad = _state_diff(st, plain)
+            check(not bad, f"phase 4b W={w} step {t}: {bad} differ from the "
+                  "plain versions")
+        fb = st["fallback"].tolist()
+        nn = st["n_nodes"].tolist()
+        for name, bit in STEP_CAUSES.items():
+            li = STEP_NAMES.index(name)
+            check(fb[li] == bit, f"phase 4b W={w}: lane {name} fell back "
+                  f"with {fb[li]}, not {bit}")
+        check(not any(fb[li] for li, nm in enumerate(STEP_NAMES)
+                      if nm not in STEP_CAUSES),
+              f"phase 4b W={w}: a lane fell back: {fb}")
+        check(nn[STEP_NAMES.index("empty")] == 0,
+              f"phase 4b W={w}: the empty lane grew")
+        print(f"  poa_thread + poa_rerank W={w} N={n_cap}: {steps} steps of "
+              f"{len(STEP_NAMES)} lanes {list(zip(STEP_NAMES, nn, fb))} "
+              "(name, nodes, fallback): every field exact after every step")
+        del st, plain
+        rows[w] = _step_rows(dev, w, n_cap, lanes, ref_len)
+        torch.cuda.empty_cache()
+    print("phase 4b poa_thread + poa_rerank: every state field exact against "
+          "the plain versions after every step at W = 1024, 2048, 4096 (noisy "
+          "packs, idle, empty and unrelated-read lanes, each fallback cause)")
+    return rows
+
+
+class _GroupCapture:
+    """Hooks on correct/pack_engine.py's ``_init_state`` and ``_step`` for
+    one ``correct`` run: at each width, the inputs of the group with the
+    most lanes (the first on ties; references to the engine's uploads, no
+    copy and no launch) and the arguments of each of its read steps."""
+
+    def __init__(self):
+        from rattle_tpu_torch.correct import pack_engine as pe
+        self._init, self._step = pe._init_state, pe._step
+        self.groups = {}
+        self._cur = None
+
+    def init_state(self, seqs, lens, n_reads, n_cap, tot_cap):
+        w, b = seqs.shape[2], seqs.shape[0]
+        self._cur = None
+        if b > self.groups.get(w, {}).get("lanes", 0):
+            self._cur = self.groups[w] = dict(
+                lanes=b, inputs=(seqs, lens, n_reads), n_cap=n_cap,
+                tot_cap=tot_cap, steps=[])
+        return self._init(seqs, lens, n_reads, n_cap=n_cap, tot_cap=tot_cap)
+
+    def step(self, st, t, w_eff=None, **kw):
+        if self._cur is not None:
+            scores = {k: v for k, v in kw.items() if k != "scratch"}
+            self._cur["steps"].append((t, w_eff, scores))
+        return self._step(st, t, w_eff=w_eff, **kw)
+
+
+@contextlib.contextmanager
+def _capturing_groups(cap: _GroupCapture):
+    from rattle_tpu_torch.correct import pack_engine as pe
+    pe._init_state, pe._step = cap.init_state, cap.step
+    try:
+        yield
+    finally:
+        pe._init_state, pe._step = cap._init, cap._step
+
+
+def _replay_groups(dev, cap: _GroupCapture) -> dict:
+    """Every read step of each captured group again, poa_thread and
+    poa_rerank against their plain versions on the same alignment: every
+    state field exact after every step, at the group's own lane count."""
+    from rattle_tpu_torch.correct import pack_engine as pe
+    from rattle_tpu_torch.ops import kernels
+    check(sorted(cap.groups) == WIDTHS,
+          f"correct: no group captured at some width: {sorted(cap.groups)}")
+    rows = {}
+    for w, g in sorted(cap.groups.items()):
+        st = pe._init_state(*g["inputs"], n_cap=g["n_cap"],
+                            tot_cap=g["tot_cap"])
+        scratch = torch.empty(
+            kernels.poa_scratch_elems(g["lanes"], g["n_cap"], w),
+            dtype=torch.int16, device=dev)
+        for t, w_eff, scores in g["steps"]:
+            _aligned, plain = _step_pair(st, t, w if w_eff is None else w_eff,
+                                         scratch, **scores)
+            bad = _state_diff(st, plain)
+            check(not bad, f"correct group W={w} step {t}: {bad} differ "
+                  "from the plain versions")
+        nn = st["n_nodes"]
+        rows[w] = dict(lanes=g["lanes"], steps=len(g["steps"]),
+                       nodes=int(nn.sum()), max_nodes=int(nn.max()),
+                       fallback_lanes=int((st["fallback"] != 0).sum()))
+        del st, plain, scratch
     return rows
 
 
@@ -1164,8 +1487,10 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     out = os.path.join(WORK, "correct_out")
     os.makedirs(out)
     torch.cuda.reset_peak_memory_stats()
-    wall, launches, st = _poa_run(["correct", "-i", fq, "-c", clusters_out,
-                                   "-o", out])
+    cap = _GroupCapture()
+    with _capturing_groups(cap):
+        wall, launches, st = _poa_run(["correct", "-i", fq, "-c",
+                                       clusters_out, "-o", out])
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_corr = _fastq_count(os.path.join(out, "corrected.fq"))
     n_unc = _fastq_count(os.path.join(out, "uncorrected.fq"))
@@ -1176,17 +1501,39 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
           "clusters with a pack")
     check(launches["poa_align"] > 0 and st["device_packs"] > 0,
           f"correct: the pack engine never ran: {launches} {st}")
+    check(launches["poa_align"] == launches["poa_thread"]
+          == launches["poa_rerank"] == st["steps"],
+          f"correct: not one launch of each step kernel a read step "
+          f"({st['steps']} steps): {launches}")
     bases = st["device_bases"] + st["host_bases"]
     res = dict(reads=n_reads, packs_by_width=widths, largest_pack=biggest,
                corrected=n_corr, uncorrected=n_unc, consensi=n_cons,
                correct_s=wall, poa_mbases_per_s=bases / 1e6 / wall,
-               peak_mem_gib=peak, launches=launches, stats=st)
+               peak_mem_gib=peak, launches=launches, stats=st,
+               t_steps_s=st.get("t_steps_s"))
     print(f"  correct: {n_corr} corrected + {n_unc} uncorrected reads, "
           f"{n_cons} consensi; packs by width {widths}, largest "
-          f"{biggest} reads; {wall:.2f} s, "
+          f"{biggest} reads; {wall:.2f} s, t_steps_s {res['t_steps_s']}, "
           f"{res['poa_mbases_per_s']:.4f} Mbases/s aligned, peak "
           f"{peak:.2f} GiB, launches {launches}")
     print(f"  correct engine: {_fmt_stats(st)}")
+    # the kernels held to their plain versions on the run's own groups
+    groups = _replay_groups(torch.device("cuda"), cap)
+    del cap
+    res["captured_groups"] = groups
+    print("  poa_thread + poa_rerank on the run's largest group at each "
+          f"width, every field exact after every step: {groups}")
+    # the same run under the profiler: the CUDA runtime's launch calls
+    from rattle_tpu_torch.pipeline.profile_cluster import profiled_launches
+    out_p = os.path.join(WORK, "correct_profiled")
+    os.makedirs(out_p)
+    prof = profiled_launches(lambda: _cli(["correct", "-i", fq, "-c",
+                                           clusters_out, "-o", out_p]))
+    res["profiled"] = prof
+    print(f"  correct profiled: {prof['launch_calls']} CUDA launch calls "
+          f"({prof['launch_calls'] / st['steps']:.2f} a read step; by call "
+          f"{prof['by_call']}), device busy {prof['device_busy_s']:.3f} s of "
+          f"{prof['wall_s']:.3f} s, idle share {prof['idle_share']:.3f}")
 
     pout = os.path.join(WORK, "polish_out")
     os.makedirs(pout)
@@ -1205,10 +1552,12 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     print(f"  polish: {n_tx} transcripts from {n_cons} consensi; "
           f"{wall_p:.2f} s, launches {launches_p}")
     print(f"  polish engine: {_fmt_stats(st_p)}")
-    print(f"phase 6 correct path: correct on {n_reads} reads ({wall:.1f} s) "
-          f"and polish --rna --summary ({wall_p:.1f} s) on cuda; every read "
-          "accounted for, one consensus per cluster with a pack, poa_align "
-          "launched")
+    print(f"phase 6 correct path: correct on {n_reads} reads ({wall:.1f} s, "
+          f"t_steps_s {res['t_steps_s']}, {prof['launch_calls']} CUDA launch "
+          f"calls) and polish --rna --summary ({wall_p:.1f} s) on cuda; every "
+          "read accounted for, one consensus per cluster with a pack, "
+          "poa_align, poa_thread and poa_rerank launched once a read step "
+          "and exact on every step of the largest group at each width")
     return res
 
 
@@ -1219,36 +1568,77 @@ def _same_files(a: str, b: str, names, what: str) -> None:
             check(fa.read() == fb.read(), f"parity {what}: {name} differs")
 
 
-def _parity_correct(fq: str, clusters_out: str):
-    """``correct`` and ``polish`` on cuda against the host path (the Python
-    POA oracle and the oracle cluster engine): byte-identical files."""
-    dirs = {k: os.path.join(WORK, f"parity_correct_{k}")
+# processes this script started; main() stops any still running at its end
+_CHILDREN = []
+
+
+def _host_correct(label: str, fq: str, clusters_out: str):
+    """Start ``correct --poa-backend host`` (the Python POA oracle, one CPU
+    core for a minute or two on 256 reads) in a process of its own, so that
+    it runs beside the card's phases; returns (process, output directory,
+    start time)."""
+    out = os.path.join(WORK, f"parity_correct_{label}_host")
+    os.makedirs(out)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rattle_tpu_torch.pipeline.cli", "correct",
+         "-i", fq, "-c", clusters_out, "-o", out, "--poa-backend", "host"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, out, time.perf_counter()
+
+
+def _device_correct(label: str, fq: str, clusters_out: str):
+    """``correct`` on cuda: every pack on the card."""
+    out = os.path.join(WORK, f"parity_correct_{label}_cuda")
+    os.makedirs(out)
+    wall, launches, st = _poa_run(["correct", "-i", fq, "-c", clusters_out,
+                                   "-o", out])
+    check(launches["poa_align"] > 0 and launches["poa_thread"] > 0,
+          f"parity correct {label}: the step kernels never ran: {launches}")
+    check(st["fallback_packs"] == 0, f"parity correct {label}: packs on the "
+          f"host aligner in the device run: {_fmt_stats(st)}")
+    return out, dict(correct_s=wall, launches=launches, stats=st)
+
+
+def _finish_parity(pending: dict) -> dict:
+    """Wait for the host ``correct`` runs of phase 7 and hold each device
+    run's three files to them byte for byte."""
+    res = {}
+    for label, (proc, host_out, t0, cuda_out, run) in pending.items():
+        _, err = proc.communicate(timeout=HOST_CORRECT_S)
+        check(proc.returncode == 0, f"parity correct {label}: the host run "
+              f"exited {proc.returncode}: {err[-2000:]}")
+        _same_files(cuda_out, host_out,
+                    ("corrected.fq", "uncorrected.fq", "consensi.fq"),
+                    f"correct {label}")
+        run["correct_host_s"] = time.perf_counter() - t0
+        res[label] = run
+        print(f"  parity correct {label}: byte-identical to the host path "
+              f"(cuda {run['correct_s']:.2f} s, {_fmt_stats(run['stats'])}; "
+              f"host oracle done {run['correct_host_s']:.1f} s after its "
+              "start, beside the other phases)")
+    print(f"phase 7 correct parity: correct on the {', '.join(res)} parity "
+          "clusters matches --poa-backend host byte for byte")
+    return res
+
+
+def _parity_polish(cuda_out: str):
+    """``polish`` on cuda against ``polish --oracle --poa-backend host`` on
+    the same consensi: byte-identical transcriptomes."""
+    fq = os.path.join(cuda_out, "consensi.fq")
+    dirs = {k: os.path.join(WORK, f"parity_polish_{k}")
             for k in ("cuda", "host")}
     for d in dirs.values():
         os.makedirs(d)
-    base = ["correct", "-i", fq, "-c", clusters_out]
-    wall, launches, st = _poa_run(base + ["-o", dirs["cuda"]])
-    check(launches["poa_align"] > 0, "parity correct: poa_align never ran")
-    check(st["fallback_packs"] == 0, "parity correct: packs on the host "
-          f"aligner in the device run: {_fmt_stats(st)}")
-    wall_h, launches_h, _ = _poa_run(base + ["-o", dirs["host"],
-                                             "--poa-backend", "host"])
-    check(launches_h["poa_align"] == 0, "parity correct: --poa-backend host "
-          "launched poa_align")
-    _same_files(dirs["cuda"], dirs["host"],
-                ("corrected.fq", "uncorrected.fq", "consensi.fq"), "correct")
-    wall_p, _, _ = _poa_run(["polish", "-i", os.path.join(
-        dirs["cuda"], "consensi.fq"), "-o", dirs["cuda"], "--rna"])
-    wall_ph, _, _ = _poa_run(["polish", "-i", os.path.join(
-        dirs["host"], "consensi.fq"), "-o", dirs["host"], "--rna", "--oracle",
-        "--poa-backend", "host"])
+    wall_p, _, _ = _poa_run(["polish", "-i", fq, "-o", dirs["cuda"],
+                             "--rna"])
+    wall_ph, _, _ = _poa_run(["polish", "-i", fq, "-o", dirs["host"],
+                              "--rna", "--oracle", "--poa-backend", "host"])
     _same_files(dirs["cuda"], dirs["host"], ("transcriptome.fq",), "polish")
-    print(f"  parity correct/polish: byte-identical to the host path "
-          f"(correct cuda {wall:.2f} s, {_fmt_stats(st)}; host oracle "
-          f"{wall_h:.2f} s; polish cuda {wall_p:.2f} s, host "
-          f"{wall_ph:.2f} s)")
-    return dict(correct_s=wall, correct_host_s=wall_h, polish_s=wall_p,
-                polish_host_s=wall_ph, launches=launches, stats=st)
+    print(f"  parity polish: byte-identical to the host path (cuda "
+          f"{wall_p:.2f} s, host {wall_ph:.2f} s)")
+    return dict(polish_s=wall_p, polish_host_s=wall_ph)
 
 
 def _capacity_fallback():
@@ -1328,7 +1718,7 @@ def _forced_rescores(fq: str, oracle_out: str):
 def phase_parity():
     from rattle_tpu_torch.utils.synth import (MAIN_FAMILIES, MAIN_READS,
                                               synthetic_reads, write_fastq)
-    res = {}
+    res, hosts = {}, {}
     for label, flags, rc in (("rna", ["--rna"], False),
                              ("cdna", [], True),
                              ("iso", ["--rna", "--iso"], False)):
@@ -1354,9 +1744,12 @@ def phase_parity():
         check(outs[0] == outs[1], f"parity {label}: clusters.out differs "
               "from --oracle")
         res[label] = runs
+        clusters_cuda = os.path.join(WORK, f"parity_{label}_cuda",
+                                     "clusters.out")
+        hosts[label] = (fq, clusters_cuda,
+                        _host_correct(label, fq, clusters_cuda))
         if label == "rna":
-            rna_inputs = (fq, os.path.join(WORK, "parity_rna_cuda",
-                                           "clusters.out"))
+            rna_fq = fq
             oracle_out = os.path.join(WORK, "parity_rna_oracle",
                                       "clusters.out")
         print(f"  parity {label}: byte-identical to --oracle (cuda "
@@ -1364,15 +1757,20 @@ def phase_parity():
               f"{runs['cuda']['launches']}, "
               f"{runs['cuda']['host_rescores']} host rescores; oracle "
               f"{runs['oracle']['s']:.2f} s)")
-    res["forced_rescores"] = _forced_rescores(rna_inputs[0], oracle_out)
-    res["correct"] = _parity_correct(*rna_inputs)
+    res["forced_rescores"] = _forced_rescores(rna_fq, oracle_out)
+    pending = {}
+    for label, (fq, clusters_cuda, host) in hosts.items():
+        cuda_out, run = _device_correct(label, fq, clusters_cuda)
+        pending[label] = (*host, cuda_out, run)
+    res["polish"] = _parity_polish(pending["rna"][3])
     _capacity_fallback()
     print(f"phase 7 parity: cluster rna/cDNA and --iso on {N_PARITY} reads "
           "match --oracle byte for byte, and so does cluster --rna with "
           "every borderline pair and every pair over 128 matches rescored "
-          "on the host; correct and polish match the host path byte for "
-          "byte with no pack on the host aligner")
-    return res
+          "on the host; correct on cuda on all three with no pack on the "
+          "host aligner (held to the host path once its runs end, after "
+          "phase 8); polish matches the host path byte for byte")
+    return res, pending
 
 
 # phase 8: (label, argv after the mode's input and output, fastq and
@@ -1536,6 +1934,16 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker(sys.argv[2])
+    try:
+        return run()
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run() -> int:
     dev = torch.device("cuda")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1545,16 +1953,19 @@ def main() -> int:
     lis_rows, cap = phase_lis(dev)
     score_rows = phase_score_path(dev, cap)
     poa_rows = phase_poa(dev)
+    step_rows = phase_step(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(f"kernel phases only: {time.perf_counter() - t_start:.1f} s")
         print(smi)
         return 0
     main_res, fq, clusters_out = phase_main_path()
     correct_res = phase_correct(fq, clusters_out, main_res["rna"]["reads"])
-    parity = phase_parity()
+    parity, pending = phase_parity()
     ranks = phase_ranks(main_res)
-    launches = dict(main_res["rna"]["launches"],
-                    poa_align=correct_res["launches"]["poa_align"])
+    parity["correct"] = _finish_parity(pending)
+    step_launches = {k: correct_res["launches"][k]
+                     for k in ("poa_align", "poa_thread", "poa_rerank")}
+    launches = dict(main_res["rna"]["launches"], **step_launches)
 
     def record(name, row, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
@@ -1587,10 +1998,19 @@ def main() -> int:
         record("greedy_owner", score_rows["greedy_owner"][0],
                "rattle_tpu_torch/csrc/greedy_owner.cu",
                "rattle_tpu/cluster/bulk.py:459"),
+        # the read step after the alignment (the rest of JAX's jitted
+        # _step), at the widest config's 64 lanes
+        record("poa_thread", step_rows[4096][0],
+               "rattle_tpu_torch/csrc/poa_thread.cu",
+               "rattle_tpu/correct/pack_engine.py:168"),
+        record("poa_rerank", step_rows[4096][1],
+               "rattle_tpu_torch/csrc/poa_rerank.cu",
+               "rattle_tpu/correct/pack_engine.py:266"),
     ]}
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
                   lis_filter=lis_rows, score_path=score_rows,
                   poa_align=poa_rows,
+                  step_kernels={str(w): r for w, r in step_rows.items()},
                   main_path=main_res, correct_path=correct_res,
                   parity=parity, ranks=ranks,
                   total_s=time.perf_counter() - t_start, **kernels_line)

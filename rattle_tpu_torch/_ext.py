@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rattle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("bv_common", "lis_filter", "poa_align", "join_expand",
-           "score_decide", "greedy_owner")
+           "score_decide", "greedy_owner", "poa_thread", "poa_rerank")
 # csrc/mma_rate.cu, a probe of the tensor cores' rate that chip_smoke.py
 # builds beside the kernels (no path launches it)
 PROBES = ("mma_rate",)
@@ -39,13 +39,15 @@ _SIGNATURES = {
     "lis_filter": ("lis_filter_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "poa_align": ("poa_align_launch",
-                  [_P] * 7 + [_I] * 7 + [_P] * 8),
+                  [_P] * 8 + [_I, _L, _I] + [_I] * 7 + [_P] * 8),
     "join_expand": ("join_expand_launch",
                     [_P] * 8 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_P]
                     + [_I] * 2 + [_P] * 6),
     "score_decide": ("score_decide_launch",
                      [_P] * 11 + [_I, _P, _L, _P, _L, _I, _I, _P, _P]),
     "greedy_owner": ("greedy_owner_launch", [_P, _I, _I, _P, _P]),
+    "poa_thread": ("poa_thread_launch", [_P] * 21 + [_I] * 7 + [_P]),
+    "poa_rerank": ("poa_rerank_launch", [_P] * 15 + [_I] * 2 + [_P]),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 

@@ -1,13 +1,15 @@
 """Device-resident POA pack engine: the whole per-pack read loop runs on the
-device, one kernel launch per read step, and no graph state crosses to the
-host until the final MSA download.
+device, three kernel launches per read step and no host sync, and no graph
+state crosses to the host until the final MSA download.
 
-Port of rattle_tpu/correct/pack_engine.py.  The graph lives on the device in
-node-id space and every step is:
+Port of rattle_tpu/correct/pack_engine.py, whose step is one jitted
+program.  The graph lives on the device in node-id space and every step is:
 
-    rank-space inputs (gathers through perm / node_rank)  ->  poa_align
-      ->  vectorized alignment threading (scatters; all conflict-free)
-      ->  incremental re-rank (key assignment + one stable sort)
+    poa_align (the read against the graph in rank order)
+      ->  poa_thread (the moves decoded and threaded into the graph:
+          scatters, all conflict-free; the re-rank's keys)
+      ->  poa_rerank (the incremental re-rank, in the order of one stable
+          sort of the keys, and the next step's rank-space inputs)
 
 The threading vectorizes because one read's path touches each group at
 most once (ranks strictly increase along the path and groups are
@@ -26,8 +28,9 @@ What differs from the JAX engine, none of it visible in a pack's MSA:
 * the state is updated in place; every scatter target carries one spare
   slot at the end of its node (or path) axis that takes the masked writes
   (JAX drops out-of-range indices, torch raises on them);
-* the kernel takes predecessor *rows*, gathered here through node_rank,
-  instead of translating nodes through a rank table inside the kernel;
+* poa_align takes predecessor *rows*, which poa_rerank gathers through
+  node_rank, instead of translating nodes through a rank table inside the
+  kernel;
 * shapes are exact (reads per group, path length, lanes), not bucketed:
   nothing is compiled per shape;
 * the lane caps are this card's (see CONFIGS).
@@ -46,18 +49,13 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops.kernels import POA_GA as GA
 from ..ops.kernels import POA_PMAX as PMAX
-from ..ops.kernels import poa_align, poa_scratch_elems
+from ..ops.kernels import POA_RANK_FIELDS as RANK_FIELDS
+from ..ops.kernels import _take, poa_align, poa_rerank, poa_scratch_elems
+from ..ops.kernels import poa_rank_space as rank_space
+from ..ops.kernels import poa_thread
 
-GA = 8                     # aligned-group member cap (distinct letters)
-BIG = 2 ** 30
-# key stride for the incremental re-rank.  run_idx is clipped to HALF-1 =
-# SK-2, so for the W=4096 config the last two nodes of a maximal-length run
-# share a key; the stable sort then orders them by node id, which equals
-# path order for nodes created left-to-right in one read, so the collision
-# resolves to the correct order by construction.
-SK = 4096
-HALF = SK - 1
 MAX_READS = 256            # reads per pack the device path takes
 # (max read len + 2, graph node cap, lane cap) per column-width config.  The
 # lane cap bounds the kernel's DP scratch, 6 bytes a cell (int16 H, F and
@@ -92,18 +90,6 @@ def _width_for(lmax: int) -> int:
     while lmax > w - 2:
         w *= 2
     return w
-
-
-def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather over axis 1 with arbitrary trailing idx dims."""
-    b = arr.shape[0]
-    return torch.gather(arr, 1, idx.reshape(b, -1).long()).reshape(idx.shape)
-
-
-def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """arr [B, M, K], idx [B, L] -> [B, L, K]."""
-    return torch.gather(
-        arr, 1, idx.long()[:, :, None].expand(-1, -1, arr.shape[2]))
 
 
 def _init_state(seqs: torch.Tensor, lens: torch.Tensor,
@@ -158,177 +144,35 @@ def pack_state_from_numpy(state: Dict[str, np.ndarray],
     return out
 
 
-def rank_space(st: dict):
-    """Rank-space inputs of ``poa_align`` from the node-space state:
-    (pred_rows [B, N, PMAX], npred [B, N], letters [B, N]) in rank order.
-    Predecessor nodes become DP rows (rank + 1) through node_rank; an empty
-    slot, and so slot 0 of a node without predecessors, is the virtual start
-    row 0."""
-    n = st["node_rank"].shape[1]
-    perm_c = st["perm"][:, :n].clamp(0, n - 1)
-    letters_r = _take(st["letters"], perm_c)
-    npred_r = _take(st["npred"], perm_c).clamp(min=1)
-    preds_r = _take_rows(st["preds"], perm_c)
-    pred_rows = torch.where(
-        preds_r >= 0, _take(st["node_rank"], preds_r.clamp(min=0)) + 1, 0)
-    return pred_rows.to(torch.int32), npred_r, letters_r
+def _align(st: dict, t: int, w: int, match: int = 5, mismatch: int = -4,
+           go: int = -8, ge: int = -6,
+           scratch: Optional[torch.Tensor] = None):
+    """poa_align of read ``t`` of every lane at width ``w``: its rank-space
+    inputs live in ``st`` between steps (poa_rerank writes the next step's);
+    a state without them (``pack_state_from_numpy``) gets them from
+    ``rank_space`` first.  Returns (packed, tlen, best)."""
+    if RANK_FIELDS[0] not in st:
+        st.update(zip(RANK_FIELDS, rank_space(st)))
+        st["keys"] = torch.empty_like(st["letters"])
+    return poa_align(
+        *(st[f] for f in RANK_FIELDS), st["n_nodes"], st["seqs"][:, t, :w],
+        st["lens"][:, t], t, st["n_reads"], st["fallback"], match=match,
+        mismatch=mismatch, go=go, ge=ge, scratch=scratch)
 
 
 def _step(st: dict, t: int, w_eff: Optional[int] = None, match: int = 5,
           mismatch: int = -4, go: int = -8, ge: int = -6,
           scratch: Optional[torch.Tensor] = None) -> dict:
-    """Align read ``t`` of every lane and thread it into its graph.  Updates
-    ``st`` in place and returns it."""
-    seqs, lens = st["seqs"], st["lens"]
-    letters, npred, preds = st["letters"], st["npred"], st["preds"]
-    n_nodes = st["n_nodes"]
-    grp_leader, member_idx = st["grp_leader"], st["member_idx"]
-    grp_size, members, grp_pos = st["grp_size"], st["members"], st["grp_pos"]
-    n_groups, perm = st["n_groups"], st["perm"]
-    path, fallback = st["path"], st["fallback"]
-
-    i32 = torch.int32
-    dev = letters.device
-    b, n = st["node_rank"].shape
+    """Align read ``t`` of every lane and thread it into its graph: three
+    kernels, poa_align -> poa_thread -> poa_rerank, and no host sync.
+    Updates ``st`` in place and returns it."""
     # effective column count for THIS step: the DP row cost is ~linear in
     # w, and pack reads arrive length-descending (the global length sort
     # orders cluster members), so later steps run at narrower widths
-    w = seqs.shape[2] if w_eff is None else w_eff
-    iota_n = torch.arange(n, dtype=i32, device=dev)[None, :]
-    iota_w = torch.arange(w, dtype=i32, device=dev)[None, :]
-    ones_w = torch.ones((b, w), dtype=i32, device=dev)
-
-    active = (t < st["n_reads"]) & (fallback == 0)
-    seq_u8 = seqs[:, t, :w].contiguous()
-    seq = seq_u8.to(i32)                              # [B, W] char at p
-    slen = lens[:, t].contiguous()
-
-    pred_rows, npred_r, letters_r = rank_space(st)
-    packed, tlen, best = poa_align(
-        pred_rows, npred_r, letters_r, n_nodes, seq_u8, slen,
-        active.to(i32), match=match, mismatch=mismatch, go=go, ge=ge,
-        scratch=scratch)
-    aligned = (best > 0) & (n_nodes > 0)
-
-    # ---- decode: per-base matched rank -> node ----
-    perm_c = perm[:, :n].clamp(0, n - 1)
-    iota_t = torch.arange(packed.shape[1], dtype=i32, device=dev)[None, :]
-    pos = (packed & 0xFFFF) - 1
-    rk = (packed >> 16) - 1
-    val = (iota_t < tlen[:, None]) & (pos >= 0) & aligned[:, None]
-    m_rank = torch.full((b, w + 1), -1, dtype=i32, device=dev).scatter_(
-        1, torch.where(val, pos, w).long(), rk)[:, :w]
-    m_node = torch.where(m_rank >= 0, _take(perm_c, m_rank.clamp(0, n - 1)),
-                         -1)
-
-    basevalid = iota_w < slen[:, None]
-    m_letter = _take(letters, m_node.clamp(0, n - 1))
-    direct = (m_node >= 0) & (m_letter == seq)
-    leader = _take(grp_leader, m_node.clamp(0, n - 1))
-    gsz = _take(grp_size, leader.clamp(0, n - 1))
-    mem = _take_rows(members, leader.clamp(0, n - 1))
-    mem_letters = _take(letters, mem.clamp(0, n - 1))
-    iota_g = torch.arange(GA, dtype=i32, device=dev)[None, None, :]
-    mem_ok = (iota_g < gsz[:, :, None]) & (mem_letters == seq[:, :, None]) \
-        & (mem >= 0)
-    has_mem = mem_ok.any(dim=2) & (m_node >= 0) & ~direct
-    # argmax of 0/1 values: the first member with the read's letter
-    first_ok = mem_ok.to(torch.int8).argmax(dim=2, keepdim=True)
-    join_node = torch.gather(mem, 2, first_ok)[:, :, 0]
-    matched = torch.where(direct, m_node, torch.where(has_mem, join_node, -1))
-    isnew = basevalid & (matched < 0)
-    new_cnt = torch.cumsum(isnew, dim=1, dtype=i32)
-    new_id = n_nodes[:, None] + new_cnt - 1
-    target = torch.where(isnew, new_id, matched)
-    target = torch.where(basevalid, target, -1)
-    purenew = isnew & (m_node < 0)
-    joiner = isnew & (m_node >= 0)
-
-    n_new = new_cnt[:, -1]
-    overflow_nodes = n_nodes + n_new > n
-
-    ok = active & ~overflow_nodes
-    wmask = basevalid & ok[:, None]
-
-    # ---- apply threading (conflict-free scatters; masked writes land in
-    # the spare slot n) ----
-    t_or_n = torch.where(wmask & isnew, target, n).long()
-    letters.scatter_(1, t_or_n, seq)
-    grp_leader.scatter_(1, t_or_n, torch.where(purenew, target, leader))
-    member_idx.scatter_(1, t_or_n, torch.where(purenew, 0, gsz))
-    p_or_n = torch.where(wmask & purenew, target, n).long()
-    grp_size.scatter_(1, p_or_n, ones_w)
-    members_flat = members.view(b, -1)
-    members_flat.scatter_(1, p_or_n * GA, target)
-    j_or_n = torch.where(wmask & joiner, leader, n).long()
-    grp_overflow = (wmask & joiner & (gsz >= GA)).any(dim=1)
-    members_flat.scatter_(1, j_or_n * GA + gsz.clamp(0, GA - 1).long(),
-                          torch.where(gsz < GA, target, -1))
-    grp_size.scatter_add_(1, j_or_n, ones_w)
-
-    prevt = torch.nn.functional.pad(target[:, :-1], (1, 0), value=-1)
-    em = wmask & (iota_w >= 1) & (prevt >= 0) & (prevt != target)
-    tgt_c = target.clamp(0, n - 1)
-    tpred = _take_rows(preds, tgt_c)
-    npr_t = _take(npred, tgt_c)
-    iota_p = torch.arange(PMAX, dtype=i32, device=dev)[None, None, :]
-    exists = ((tpred == prevt[:, :, None])
-              & (iota_p < npr_t[:, :, None])).any(dim=2)
-    add = em & ~exists
-    pred_overflow = (add & (npr_t >= PMAX)).any(dim=1)
-    a_or_n = torch.where(add, target, n).long()
-    preds.view(b, -1).scatter_(
-        1, a_or_n * PMAX + npr_t.clamp(0, PMAX - 1).long(),
-        torch.where(npr_t < PMAX, prevt, -1))
-    npred.scatter_add_(1, a_or_n, ones_w)
-
-    tot = path.shape[1] - 1
-    pidx = torch.where(wmask, st["offsets"][:, t, None] + iota_w, tot)
-    path.scatter_(1, pidx.long(), target)
-
-    # ---- incremental re-rank ----
-    lead_all = torch.where(purenew, target, leader)
-    lead_all = torch.where(isnew, lead_all,
-                           _take(grp_leader, matched.clamp(0, n - 1)))
-    placed = wmask & ~purenew
-    gpos_t = _take(grp_pos, lead_all.clamp(0, n - 1))
-    gmark = torch.where(placed, gpos_t, BIG)
-    gnext = torch.flip(torch.cummin(torch.flip(gmark, [1]), dim=1).values,
-                       [1])
-    gnextf = torch.where(gnext >= BIG, n_groups[:, None], gnext)
-    lastp = torch.cummax(torch.where(placed, iota_w, -1), dim=1).values
-    run_idx = iota_w - lastp - 1
-    key_new = gnextf * SK + run_idx.clamp(0, HALF - 1)
-
-    is_leader = grp_leader[:, :n] == iota_n
-    keys = torch.full((b, n + 1), BIG, dtype=i32, device=dev)
-    keys[:, :n] = torch.where(is_leader & (iota_n < n_nodes[:, None]),
-                              grp_pos[:, :n] * SK + HALF, BIG)
-    keys.scatter_(1, p_or_n, key_new.to(i32))
-
-    # stable: equal keys (see SK) must keep node-id order
-    order = torch.sort(keys[:, :n], dim=1, stable=True).indices
-    gsz_s = torch.gather(grp_size, 1, order)
-    n_groups_new = torch.where(
-        ok, n_groups + (purenew & wmask).sum(dim=1).to(i32), n_groups)
-    n_nodes_new = torch.where(ok, n_nodes + n_new, n_nodes)
-    live_pos = iota_n < n_groups_new[:, None]
-    iota_bn = iota_n.expand(b, n).contiguous()
-    grp_pos.scatter_(1, torch.where(live_pos, order, n), iota_bn)
-    sz_sorted = torch.where(live_pos, gsz_s, 0)
-    starts = torch.cumsum(sz_sorted, dim=1, dtype=i32) - sz_sorted
-    posn = _take(grp_pos, grp_leader[:, :n].clamp(0, n - 1))
-    rank_new = _take(starts, posn.clamp(0, n - 1)) + member_idx[:, :n]
-    valid_node = iota_n < n_nodes_new[:, None]
-    node_rank = torch.where(valid_node, rank_new, n).to(i32)
-    perm.scatter_(1, node_rank.long(), iota_bn)
-    fallback = fallback | torch.where(
-        active,
-        overflow_nodes.to(i32) + (pred_overflow.to(i32) << 1)
-        + (grp_overflow.to(i32) << 2), 0)
-
-    st.update(n_nodes=n_nodes_new, n_groups=n_groups_new,
-              node_rank=node_rank, fallback=fallback)
+    w = st["seqs"].shape[2] if w_eff is None else w_eff
+    aligned = _align(st, t, w, match, mismatch, go, ge, scratch)
+    poa_thread(st, t, w, *aligned)
+    poa_rerank(st)
     return st
 
 

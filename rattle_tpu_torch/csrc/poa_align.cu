@@ -179,10 +179,12 @@ poa_align_kernel(const int32_t* __restrict__ pred_rows,  // [B, N, 16]
                  const int32_t* __restrict__ npred,      // [B, N]
                  const int32_t* __restrict__ letters,    // [B, N]
                  const int32_t* __restrict__ n_nodes,    // [B]
-                 const uint8_t* __restrict__ seq,        // [B, W]
-                 const int32_t* __restrict__ seq_len,    // [B]
-                 const int32_t* __restrict__ active,     // [B]
-                 int n, int w, int match, int mismatch, int go, int ge,
+                 const uint8_t* __restrict__ seq,        // [B, W], rows seq_ld
+                 const int32_t* __restrict__ seq_len,    // [B], stride len_ld
+                 const int32_t* __restrict__ n_reads,    // [B]
+                 const int32_t* __restrict__ fallback,   // [B]
+                 int step, long long seq_ld, int len_ld, int n, int w,
+                 int match, int mismatch, int go, int ge,
                  short* H, short* F, unsigned short* D,  // [B, N + 1, W]
                  int32_t* __restrict__ packed,           // [B, W]
                  int32_t* __restrict__ tlen, int32_t* __restrict__ best,
@@ -207,8 +209,11 @@ poa_align_kernel(const int32_t* __restrict__ pred_rows,  // [B, N, 16]
   const int wl = tid & 31;
 
   const int nn = min(n_nodes[lane], n);
-  const int slen = min(seq_len[lane], w - 1);
-  if (active[lane] <= 0 || nn <= 0) {   // uniform over the cluster
+  const int slen = min(seq_len[static_cast<size_t>(lane) * len_ld], w - 1);
+  // the pack engine's step: the lane aligns while it has reads and has not
+  // fallen back
+  const bool live = step < n_reads[lane] && fallback[lane] == 0;
+  if (!live || nn <= 0) {   // uniform over the cluster
     if (tid == 0 && cta == 0) {
       tlen[lane] = 0;
       best[lane] = 0;
@@ -240,7 +245,7 @@ poa_align_kernel(const int32_t* __restrict__ pred_rows,  // [B, N, 16]
 
   // column j holds read base j - 1; 0 marks a masked column (j = 0, j > len)
   for (int j = tid; j < w; j += blockDim.x)
-    sseq[j] = (j >= 1 && j <= slen) ? seq[static_cast<size_t>(lane) * w + j - 1]
+    sseq[j] = (j >= 1 && j <= slen) ? seq[lane * seq_ld + j - 1]
                                     : 0;
   if (tid < kWarps) prog[tid] = 0;
   for (int q = tid; q < kQ; q += blockDim.x) {
@@ -555,9 +560,12 @@ poa_align_kernel(const int32_t* __restrict__ pred_rows,  // [B, N, 16]
 
 }  // namespace
 
-// pred_rows [b, n, 16], npred, letters [b, n], n_nodes, seq_len, active [b]
-// int32; seq [b, w] bytes; scratch H, F, D [b, n + 1, w] int16; outputs packed
-// [b, w], tlen [b], best [b] int32.  w is a multiple of 128, at most 4096.
+// pred_rows [b, n, 16], npred, letters [b, n], n_nodes, seq_len, n_reads,
+// fallback [b] int32; seq [b, w] bytes, lane l's read at seq + l * seq_ld,
+// its length at seq_len[l * len_ld].  Lane l aligns when step < n_reads[l]
+// and fallback[l] == 0 (the pack engine's read step ``step``).  Scratch
+// H, F, D [b, n + 1, w] int16; outputs packed [b, w], tlen [b], best [b]
+// int32.  w is a multiple of 128, at most 4096.
 // ``stamps`` is null or [b, 3] int64 that takes the lane's start, end of the
 // DP rows and end of the traceback in nanoseconds of the card's global timer
 // (a probe of the DP / traceback split).  Launches on ``stream`` and returns
@@ -565,8 +573,10 @@ poa_align_kernel(const int32_t* __restrict__ pred_rows,  // [B, N, 16]
 extern "C" int poa_align_launch(const void* pred_rows, const void* npred,
                                 const void* letters, const void* n_nodes,
                                 const void* seq, const void* seq_len,
-                                const void* active, int b, int n, int w,
-                                int match, int mismatch, int go, int ge,
+                                const void* n_reads, const void* fallback,
+                                int step, long long seq_ld, int len_ld, int b,
+                                int n, int w, int match, int mismatch, int go,
+                                int ge,
                                 void* H, void* F, void* D, void* packed,
                                 void* tlen, void* best, void* stamps,
                                 void* stream) {
@@ -595,8 +605,10 @@ extern "C" int poa_align_launch(const void* pred_rows, const void* npred,
       &cfg, poa_align_kernel, static_cast<const int32_t*>(pred_rows),
       static_cast<const int32_t*>(npred), static_cast<const int32_t*>(letters),
       static_cast<const int32_t*>(n_nodes), static_cast<const uint8_t*>(seq),
-      static_cast<const int32_t*>(seq_len), static_cast<const int32_t*>(active),
-      n, w, match, mismatch, go, ge, static_cast<short*>(H),
+      static_cast<const int32_t*>(seq_len),
+      static_cast<const int32_t*>(n_reads),
+      static_cast<const int32_t*>(fallback), step, seq_ld, len_ld, n, w, match,
+      mismatch, go, ge, static_cast<short*>(H),
       static_cast<short*>(F), static_cast<unsigned short*>(D),
       static_cast<int32_t*>(packed), static_cast<int32_t*>(tlen),
       static_cast<int32_t*>(best), ctas, static_cast<long long*>(stamps));

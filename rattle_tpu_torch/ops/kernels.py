@@ -19,6 +19,14 @@ jitted programs that ran as eager launch chains:
 * ``greedy_owner`` -- csrc/greedy_owner.cu: rattle_tpu/cluster/bulk.py::
   greedy_owner, the block replay.
 
+and the two kernels of ``correct``'s read step after ``poa_align``, the rest
+of rattle_tpu/correct/pack_engine.py::_step:
+
+* ``poa_thread`` -- csrc/poa_thread.cu: the alignment's moves decoded and
+  threaded into each lane's graph, and the keys of the re-rank.
+* ``poa_rerank`` -- csrc/poa_rerank.cu: the incremental re-rank and the next
+  step's rank-space inputs of ``poa_align``.
+
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and takes the
 plain version only because its tensors lie on the CPU; there is no fallback
 from one to the other.  Each wrapper counts its kernel launches in a plain
@@ -220,10 +228,10 @@ def _shift1(x: torch.Tensor, fill: int) -> torch.Tensor:
 
 def poa_align_plain(pred_rows: torch.Tensor, npred: torch.Tensor,
                     letters: torch.Tensor, n_nodes: torch.Tensor,
-                    seq: torch.Tensor, seq_len: torch.Tensor,
-                    active: torch.Tensor, match: int = 5, mismatch: int = -4,
-                    go: int = -8, ge: int = -6,
-                    scratch: Optional[torch.Tensor] = None
+                    seq: torch.Tensor, seq_len: torch.Tensor, step: int,
+                    n_reads: torch.Tensor, fallback: torch.Tensor,
+                    match: int = 5, mismatch: int = -4, go: int = -8,
+                    ge: int = -6, scratch: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version: the recurrences of ops/poa.py::align_local row by row
     over all lanes at once (int32 rows, cummax for the E prefix maximum),
@@ -234,7 +242,8 @@ def poa_align_plain(pred_rows: torch.Tensor, npred: torch.Tensor,
     b, n = letters.shape
     w = seq.shape[1]
     bidx = torch.arange(b, device=dev)
-    nn = torch.where(active > 0, n_nodes.clamp(max=n), 0)
+    active = (step < n_reads) & (fallback == 0)
+    nn = torch.where(active, n_nodes.clamp(max=n), 0)
     rows = int(nn.max()) if b else 0
     cs = torch.arange(w, dtype=i32, device=dev)[None, :]
     slen = seq_len.clamp(max=w - 1)[:, None]
@@ -333,7 +342,8 @@ def poa_align_plain(pred_rows: torch.Tensor, npred: torch.Tensor,
 
 def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
               letters: torch.Tensor, n_nodes: torch.Tensor,
-              seq: torch.Tensor, seq_len: torch.Tensor, active: torch.Tensor,
+              seq: torch.Tensor, seq_len: torch.Tensor, step: int,
+              n_reads: torch.Tensor, fallback: torch.Tensor,
               match: int = 5, mismatch: int = -4, go: int = -8, ge: int = -6,
               scratch: Optional[torch.Tensor] = None,
               stamps: Optional[torch.Tensor] = None
@@ -346,12 +356,16 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
     start row, else rank + 1; slot 0 is 0 for a rank without predecessors);
     ``npred`` [B, N] >= 1; ``letters`` [B, N]; ``n_nodes`` [B]; ``seq``
     [B, W] uint8, base p at column p, W a multiple of 128 up to 4096 (the
-    step's width, a runtime value); ``seq_len`` [B] <= W - 2; ``active`` [B].
+    step's width, a runtime value), unit column stride and any row stride
+    (the pack's ``seqs[:, t, :W]`` is read in place); ``seq_len`` [B] <= W -
+    2, any stride.  A lane aligns at the pack engine's read step ``step``
+    while step < ``n_reads`` [B] and ``fallback`` [B] == 0 (both read on the
+    card); a lone alignment passes step 0, n_reads 1 and fallback 0.
 
     Returns (packed [B, W], count [B], best [B]): the traceback's diagonal
     moves as (rank + 1) << 16 | (pos + 1) in reverse order, their number,
-    and the best score.  An inactive lane or an empty graph gives count 0
-    and best 0.
+    and the best score; packed entries from count on are undefined.  An
+    inactive lane or an empty graph gives count 0 and best 0.
 
     ``scratch``: optional 1-d int16 tensor on the same device with at least
     ``poa_scratch_elems(B, N, W)`` elements, reused across calls; the kernel
@@ -366,11 +380,14 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
     b, n = letters.shape
     _check("poa_align npred", npred, torch.int32, 2, dev, n)
     _check("poa_align pred_rows", pred_rows, torch.int32, 3, dev, POA_PMAX)
-    _check("poa_align seq", seq, torch.uint8, 2, dev)
+    _check_table("poa_align seq", seq, torch.uint8, dev)
     w = seq.shape[1]
-    for name, v in (("n_nodes", n_nodes), ("seq_len", seq_len),
-                    ("active", active)):
-        _check(f"poa_align {name}", v, torch.int32, 1, dev, b)
+    _check("poa_align n_nodes", n_nodes, torch.int32, 1, dev, b)
+    if (seq_len.dtype != torch.int32 or seq_len.dim() != 1
+            or seq_len.device != dev or seq_len.shape[0] != b):
+        raise ValueError(f"poa_align seq_len: expected int32 [{b}] on {dev}")
+    _check("poa_align n_reads", n_reads, torch.int32, 1, dev, b)
+    _check("poa_align fallback", fallback, torch.int32, 1, dev, b)
     if (npred.shape[0] != b or seq.shape[0] != b
             or tuple(pred_rows.shape[:2]) != (b, n)):
         raise ValueError("poa_align: inputs must share [B, N]")
@@ -379,7 +396,8 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
                          f"[128, {POA_MAX_W}] and N >= 1, got W={w} N={n}")
     if not _on_card(letters):
         return poa_align_plain(pred_rows, npred, letters, n_nodes, seq,
-                               seq_len, active, match, mismatch, go, ge)
+                               seq_len, step, n_reads, fallback, match,
+                               mismatch, go, ge)
     need = poa_scratch_elems(b, n, w)
     if scratch is None:
         scratch = torch.empty(need, dtype=torch.int16, device=dev)
@@ -388,7 +406,7 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
         if scratch.numel() < need:
             raise ValueError(f"poa_align: scratch has {scratch.numel()} "
                              f"elements, needs {need}")
-    packed = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    packed = torch.empty((b, w), dtype=torch.int32, device=dev)
     tlen = torch.empty((b,), dtype=torch.int32, device=dev)
     best = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
@@ -402,7 +420,9 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
     fn = _ext.load("poa_align").poa_align_launch
     _raise_on(fn(pred_rows.data_ptr(), npred.data_ptr(), letters.data_ptr(),
                  n_nodes.data_ptr(), seq.data_ptr(), seq_len.data_ptr(),
-                 active.data_ptr(), b, n, w, match, mismatch, go, ge,
+                 n_reads.data_ptr(), fallback.data_ptr(), step,
+                 _row_stride(seq), seq_len.stride(0), b, n, w, match,
+                 mismatch, go, ge,
                  base, base + plane, base + 2 * plane, packed.data_ptr(),
                  tlen.data_ptr(), best.data_ptr(),
                  None if stamps is None else stamps.data_ptr(),
@@ -412,6 +432,330 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
 
 
 poa_align.launches = 0
+
+# --------------------------------------------------------------------------
+# the pack engine's read step after poa_align: threading and re-rank
+# --------------------------------------------------------------------------
+
+POA_GA = 8              # aligned-group member cap (distinct letters)
+POA_BIG = 2 ** 30
+# key stride of the incremental re-rank.  run_idx is clipped to HALF-1 =
+# SK-2, so for the W=4096 config the last two nodes of a maximal-length run
+# share a key; the stable sort then orders them by node id, which equals
+# path order for nodes created left-to-right in one read, so the collision
+# resolves to the correct order by construction.
+POA_SK = 4096
+POA_HALF = POA_SK - 1
+POA_MAX_N = 16384       # graph nodes a lane the step kernels take
+# the rank-space inputs of poa_align that poa_rerank writes for the next step
+POA_RANK_FIELDS = ("pred_rows", "npred_r", "letters_r")
+# node-space state fields [B, N + 1] (one spare slot) of 2, 3 dims
+_NODE_FIELDS = ("letters", "npred", "grp_leader", "member_idx", "grp_size",
+                "grp_pos", "perm", "keys")
+_LANE_FIELDS = ("n_reads", "n_nodes", "n_groups", "fallback")
+
+
+def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather over axis 1 with arbitrary trailing idx dims."""
+    b = arr.shape[0]
+    return torch.gather(arr, 1, idx.reshape(b, -1).long()).reshape(idx.shape)
+
+
+def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr [B, M, K], idx [B, L] -> [B, L, K]."""
+    return torch.gather(
+        arr, 1, idx.long()[:, :, None].expand(-1, -1, arr.shape[2]))
+
+
+def poa_rank_space(st: dict):
+    """Rank-space inputs of ``poa_align`` from the node-space state:
+    (pred_rows [B, N, PMAX], npred [B, N], letters [B, N]) in rank order.
+    Predecessor nodes become DP rows (rank + 1) through node_rank; an empty
+    slot, and so slot 0 of a node without predecessors, is the virtual start
+    row 0."""
+    n = st["node_rank"].shape[1]
+    perm_c = st["perm"][:, :n].clamp(0, n - 1)
+    letters_r = _take(st["letters"], perm_c)
+    npred_r = _take(st["npred"], perm_c).clamp(min=1)
+    preds_r = _take_rows(st["preds"], perm_c)
+    pred_rows = torch.where(
+        preds_r >= 0, _take(st["node_rank"], preds_r.clamp(min=0)) + 1, 0)
+    return pred_rows.to(torch.int32), npred_r, letters_r
+
+
+def _check_step_state(name: str, st: dict, rank_space: bool) -> Tuple[int,
+                                                                       int]:
+    """The pack engine's state as the step kernels take it (see
+    ``poa_thread``); returns (B, N)."""
+    dev = st["letters"].device
+    b, n1 = st["letters"].shape
+    n = n1 - 1
+    if n < 1 or n > POA_MAX_N:
+        raise ValueError(f"{name}: N must be in [1, {POA_MAX_N}], got {n}")
+    for f in _NODE_FIELDS:
+        _check(f"{name} {f}", st[f], torch.int32, 2, dev, n1)
+    _check(f"{name} preds", st["preds"], torch.int32, 3, dev, POA_PMAX)
+    _check(f"{name} members", st["members"], torch.int32, 3, dev, POA_GA)
+    _check(f"{name} node_rank", st["node_rank"], torch.int32, 2, dev, n)
+    for f in _LANE_FIELDS:
+        _check(f"{name} {f}", st[f], torch.int32, 1, dev, b)
+    _check(f"{name} path", st["path"], torch.int32, 2, dev)
+    shapes = [st[f].shape[0] for f in _NODE_FIELDS + ("preds", "members",
+                                                      "node_rank", "path")]
+    if set(shapes) != {b} or st["preds"].shape[1] != n1 \
+            or st["members"].shape[1] != n1:
+        raise ValueError(f"{name}: state fields must share [B, N + 1]")
+    if rank_space:
+        _check(f"{name} pred_rows", st["pred_rows"], torch.int32, 3, dev,
+               POA_PMAX)
+        for f in POA_RANK_FIELDS[1:]:
+            _check(f"{name} {f}", st[f], torch.int32, 2, dev, n)
+        if tuple(st["pred_rows"].shape[:2]) != (b, n) \
+                or {st[f].shape[0] for f in POA_RANK_FIELDS[1:]} != {b}:
+            raise ValueError(f"{name}: rank-space buffers must be [B, N]")
+    return b, n
+
+
+def poa_thread_plain(st: dict, t: int, w: int, packed: torch.Tensor,
+                     tlen: torch.Tensor, best: torch.Tensor) -> None:
+    """Plain version: the eager chain of the pack engine's step from the
+    alignment's moves to the keys of the re-rank, then the lane counters.
+    Masked scatter writes land in the spare slot."""
+    seqs, lens = st["seqs"], st["lens"]
+    letters, npred, preds = st["letters"], st["npred"], st["preds"]
+    n_nodes = st["n_nodes"]
+    grp_leader, member_idx = st["grp_leader"], st["member_idx"]
+    grp_size, members, grp_pos = st["grp_size"], st["members"], st["grp_pos"]
+    n_groups, perm = st["n_groups"], st["perm"]
+    path, fallback, keys = st["path"], st["fallback"], st["keys"]
+
+    i32 = torch.int32
+    dev = letters.device
+    b, n = st["node_rank"].shape
+    iota_n = torch.arange(n, dtype=i32, device=dev)[None, :]
+    iota_w = torch.arange(w, dtype=i32, device=dev)[None, :]
+    ones_w = torch.ones((b, w), dtype=i32, device=dev)
+
+    active = (t < st["n_reads"]) & (fallback == 0)
+    seq = seqs[:, t, :w].to(i32)                      # [B, W] char at p
+    slen = lens[:, t]
+    aligned = (best > 0) & (n_nodes > 0)
+
+    # ---- decode: per-base matched rank -> node ----
+    perm_c = perm[:, :n].clamp(0, n - 1)
+    iota_t = torch.arange(packed.shape[1], dtype=i32, device=dev)[None, :]
+    pos = (packed & 0xFFFF) - 1
+    rk = (packed >> 16) - 1
+    val = (iota_t < tlen[:, None]) & (pos >= 0) & aligned[:, None]
+    m_rank = torch.full((b, w + 1), -1, dtype=i32, device=dev).scatter_(
+        1, torch.where(val, pos, w).long(), rk)[:, :w]
+    m_node = torch.where(m_rank >= 0, _take(perm_c, m_rank.clamp(0, n - 1)),
+                         -1)
+
+    basevalid = iota_w < slen[:, None]
+    m_letter = _take(letters, m_node.clamp(0, n - 1))
+    direct = (m_node >= 0) & (m_letter == seq)
+    leader = _take(grp_leader, m_node.clamp(0, n - 1))
+    gsz = _take(grp_size, leader.clamp(0, n - 1))
+    mem = _take_rows(members, leader.clamp(0, n - 1))
+    mem_letters = _take(letters, mem.clamp(0, n - 1))
+    iota_g = torch.arange(POA_GA, dtype=i32, device=dev)[None, None, :]
+    mem_ok = (iota_g < gsz[:, :, None]) & (mem_letters == seq[:, :, None]) \
+        & (mem >= 0)
+    has_mem = mem_ok.any(dim=2) & (m_node >= 0) & ~direct
+    # argmax of 0/1 values: the first member with the read's letter
+    first_ok = mem_ok.to(torch.int8).argmax(dim=2, keepdim=True)
+    join_node = torch.gather(mem, 2, first_ok)[:, :, 0]
+    matched = torch.where(direct, m_node, torch.where(has_mem, join_node, -1))
+    isnew = basevalid & (matched < 0)
+    new_cnt = torch.cumsum(isnew, dim=1, dtype=i32)
+    new_id = n_nodes[:, None] + new_cnt - 1
+    target = torch.where(isnew, new_id, matched)
+    target = torch.where(basevalid, target, -1)
+    purenew = isnew & (m_node < 0)
+    joiner = isnew & (m_node >= 0)
+
+    n_new = new_cnt[:, -1]
+    overflow_nodes = n_nodes + n_new > n
+
+    ok = active & ~overflow_nodes
+    wmask = basevalid & ok[:, None]
+
+    # ---- apply threading (conflict-free scatters; masked writes land in
+    # the spare slot n) ----
+    t_or_n = torch.where(wmask & isnew, target, n).long()
+    letters.scatter_(1, t_or_n, seq)
+    grp_leader.scatter_(1, t_or_n, torch.where(purenew, target, leader))
+    member_idx.scatter_(1, t_or_n, torch.where(purenew, 0, gsz))
+    p_or_n = torch.where(wmask & purenew, target, n).long()
+    grp_size.scatter_(1, p_or_n, ones_w)
+    members_flat = members.view(b, -1)
+    members_flat.scatter_(1, p_or_n * POA_GA, target)
+    j_or_n = torch.where(wmask & joiner, leader, n).long()
+    grp_overflow = (wmask & joiner & (gsz >= POA_GA)).any(dim=1)
+    members_flat.scatter_(1, j_or_n * POA_GA + gsz.clamp(0, POA_GA - 1).long(),
+                          torch.where(gsz < POA_GA, target, -1))
+    grp_size.scatter_add_(1, j_or_n, ones_w)
+
+    prevt = torch.nn.functional.pad(target[:, :-1], (1, 0), value=-1)
+    em = wmask & (iota_w >= 1) & (prevt >= 0) & (prevt != target)
+    tgt_c = target.clamp(0, n - 1)
+    tpred = _take_rows(preds, tgt_c)
+    npr_t = _take(npred, tgt_c)
+    iota_p = torch.arange(POA_PMAX, dtype=i32, device=dev)[None, None, :]
+    exists = ((tpred == prevt[:, :, None])
+              & (iota_p < npr_t[:, :, None])).any(dim=2)
+    add = em & ~exists
+    pred_overflow = (add & (npr_t >= POA_PMAX)).any(dim=1)
+    a_or_n = torch.where(add, target, n).long()
+    preds.view(b, -1).scatter_(
+        1, a_or_n * POA_PMAX + npr_t.clamp(0, POA_PMAX - 1).long(),
+        torch.where(npr_t < POA_PMAX, prevt, -1))
+    npred.scatter_add_(1, a_or_n, ones_w)
+
+    tot = path.shape[1] - 1
+    pidx = torch.where(wmask, st["offsets"][:, t, None] + iota_w, tot)
+    path.scatter_(1, pidx.long(), target)
+
+    # ---- keys of the incremental re-rank ----
+    lead_all = torch.where(purenew, target, leader)
+    lead_all = torch.where(isnew, lead_all,
+                           _take(grp_leader, matched.clamp(0, n - 1)))
+    placed = wmask & ~purenew
+    gpos_t = _take(grp_pos, lead_all.clamp(0, n - 1))
+    gmark = torch.where(placed, gpos_t, POA_BIG)
+    gnext = torch.flip(torch.cummin(torch.flip(gmark, [1]), dim=1).values,
+                       [1])
+    gnextf = torch.where(gnext >= POA_BIG, n_groups[:, None], gnext)
+    lastp = torch.cummax(torch.where(placed, iota_w, -1), dim=1).values
+    run_idx = iota_w - lastp - 1
+    key_new = gnextf * POA_SK + run_idx.clamp(0, POA_HALF - 1)
+
+    is_leader = grp_leader[:, :n] == iota_n
+    keys[:, n] = POA_BIG
+    keys[:, :n] = torch.where(is_leader & (iota_n < n_nodes[:, None]),
+                              grp_pos[:, :n] * POA_SK + POA_HALF, POA_BIG)
+    keys.scatter_(1, p_or_n, key_new.to(i32))
+
+    # ---- lane counters ----
+    n_groups.copy_(torch.where(
+        ok, n_groups + (purenew & wmask).sum(dim=1).to(i32), n_groups))
+    fallback.copy_(fallback | torch.where(
+        active,
+        overflow_nodes.to(i32) + (pred_overflow.to(i32) << 1)
+        + (grp_overflow.to(i32) << 2), 0))
+    n_nodes.copy_(torch.where(ok, n_nodes + n_new, n_nodes))
+
+
+def poa_thread(st: dict, t: int, w: int, packed: torch.Tensor,
+               tlen: torch.Tensor, best: torch.Tensor) -> None:
+    """Thread read ``t`` of every lane into its graph, in place, from
+    ``poa_align``'s outputs (packed [B, w], tlen, best [B]) at the step's
+    width ``w``: decode the moves to nodes, join aligned groups, add nodes,
+    edges, group members and the path, write the re-rank's keys (node id
+    order, valid below the new n_nodes) and the lane counters (n_nodes,
+    n_groups, fallback).  Every gather sees the state as it was before the
+    step's scatters.
+
+    ``st``, int32 unless noted, every array contiguous: seqs [B, R, W']
+    uint8 (w <= W'), lens, offsets [B, R]; n_reads, n_nodes, n_groups,
+    fallback [B]; letters, npred, grp_leader, member_idx, grp_size, grp_pos,
+    perm, keys [B, N + 1] (slot N spare), preds [B, N + 1, 16], members
+    [B, N + 1, 8], node_rank [B, N], path [B, T + 1].  N <= POA_MAX_N.  A
+    lane is active while t < n_reads and fallback == 0; a lane whose new
+    nodes would pass N threads nothing and falls back (bit 1), as does one
+    whose edge or group insert passes its cap (bits 2, 4, state kept as the
+    plain version leaves it)."""
+    b, n = _check_step_state("poa_thread", st, rank_space=False)
+    dev = st["letters"].device
+    seqs = st["seqs"]
+    _check("poa_thread seqs", seqs, torch.uint8, 3, dev)
+    r = seqs.shape[1]
+    for f in ("lens", "offsets"):
+        _check(f"poa_thread {f}", st[f], torch.int32, 2, dev, r)
+    _check("poa_thread packed", packed, torch.int32, 2, dev, w)
+    for name, v in (("tlen", tlen), ("best", best)):
+        _check(f"poa_thread {name}", v, torch.int32, 1, dev, b)
+    if not (0 <= t < r and 1 <= w <= min(seqs.shape[2], POA_MAX_W)
+            and seqs.shape[0] == b and packed.shape[0] == b):
+        raise ValueError(f"poa_thread: step {t} of {r} at width {w} (reads "
+                         f"{tuple(seqs.shape)}, packed {tuple(packed.shape)})")
+    if not _on_card(packed):
+        return poa_thread_plain(st, t, w, packed, tlen, best)
+    if b == 0:
+        return None
+    fn = _ext.load("poa_thread").poa_thread_launch
+    ptr = [st[f].data_ptr() for f in (
+        "seqs", "lens", "offsets", "n_reads", "letters", "npred", "preds",
+        "grp_leader", "member_idx", "grp_size", "members", "grp_pos", "perm",
+        "path", "keys", "n_nodes", "n_groups", "fallback")]
+    _raise_on(fn(*ptr, packed.data_ptr(), tlen.data_ptr(), best.data_ptr(),
+                 b, r, seqs.shape[2], n, st["path"].shape[1] - 1, t, w,
+                 _stream(dev)), "poa_thread")
+    poa_thread.launches += 1
+    return None
+
+
+poa_thread.launches = 0
+
+
+def poa_rerank_plain(st: dict) -> None:
+    """Plain version: the eager re-rank of the pack engine's step (one
+    stable sort of the keys), then ``poa_rank_space`` written for the ranks
+    below n_nodes."""
+    keys, grp_size, grp_pos = st["keys"], st["grp_size"], st["grp_pos"]
+    grp_leader, member_idx = st["grp_leader"], st["member_idx"]
+    node_rank, perm = st["node_rank"], st["perm"]
+    n_nodes, n_groups = st["n_nodes"], st["n_groups"]
+    i32 = torch.int32
+    b, n = node_rank.shape
+    iota_n = torch.arange(n, dtype=i32, device=keys.device)[None, :]
+
+    # stable: equal keys (see POA_SK) must keep node-id order
+    order = torch.sort(keys[:, :n], dim=1, stable=True).indices
+    gsz_s = torch.gather(grp_size, 1, order)
+    live_pos = iota_n < n_groups[:, None]
+    iota_bn = iota_n.expand(b, n).contiguous()
+    grp_pos.scatter_(1, torch.where(live_pos, order, n), iota_bn)
+    sz_sorted = torch.where(live_pos, gsz_s, 0)
+    starts = torch.cumsum(sz_sorted, dim=1, dtype=i32) - sz_sorted
+    posn = _take(grp_pos, grp_leader[:, :n].clamp(0, n - 1))
+    rank_new = _take(starts, posn.clamp(0, n - 1)) + member_idx[:, :n]
+    live = iota_n < n_nodes[:, None]
+    node_rank.copy_(torch.where(live, rank_new, n))
+    perm.scatter_(1, node_rank.long(), iota_bn)
+    # the next step's inputs of poa_align, ranks below n_nodes
+    for name, new in zip(POA_RANK_FIELDS, poa_rank_space(st)):
+        buf = st[name]
+        keep = live if buf.dim() == 2 else live[:, :, None]
+        buf.copy_(torch.where(keep, new, buf))
+
+
+def poa_rerank(st: dict) -> None:
+    """The incremental re-rank of every lane after ``poa_thread``, in place:
+    the stable order of the keys below n_nodes gives each live group its
+    position (grp_pos) and each node below n_nodes its rank (node_rank, N
+    above), perm inverts node_rank, and pred_rows / npred_r / letters_r
+    [B, N(, 16)] (``poa_rank_space``) are written for the ranks below
+    n_nodes, the rows poa_align reads.  ``st`` as ``poa_thread`` takes it,
+    plus those three buffers."""
+    b, n = _check_step_state("poa_rerank", st, rank_space=True)
+    dev = st["letters"].device
+    if not _on_card(st["keys"]):
+        return poa_rerank_plain(st)
+    if b == 0:
+        return None
+    fn = _ext.load("poa_rerank").poa_rerank_launch
+    ptr = [st[f].data_ptr() for f in (
+        "keys", "grp_size", "grp_leader", "member_idx", "preds", "npred",
+        "letters", "n_nodes", "n_groups", "grp_pos", "perm", "node_rank",
+        *POA_RANK_FIELDS)]
+    _raise_on(fn(*ptr, b, n, _stream(dev)), "poa_rerank")
+    poa_rerank.launches += 1
+    return None
+
+
+poa_rerank.launches = 0
 
 # --------------------------------------------------------------------------
 # cluster's score path: join, decision, block replay
@@ -727,7 +1071,7 @@ def greedy_owner(w: torch.Tensor, n_valid: int) -> torch.Tensor:
 greedy_owner.launches = 0
 
 _KERNELS = (bv_common, lis_filter, poa_align, join_expand, score_decide,
-            greedy_owner)
+            greedy_owner, poa_thread, poa_rerank)
 
 
 def reset_launches() -> None:

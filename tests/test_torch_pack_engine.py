@@ -1,6 +1,10 @@
 """The port's pack engine on the CPU vs the JAX pack engine (Pallas kernel in
 interpret mode) and the ``ops/poa`` oracle, with the packs of
-tests/test_pack_engine.py.  MSA rows and statistics are compared exactly.
+tests/test_pack_engine.py.  MSA rows and statistics are compared exactly, and
+so is the read step (poa_align -> poa_thread -> poa_rerank on their plain
+versions) against the JAX engine's jitted ``_step``: every state field after
+one step from an injected JAX state, and after each of 18 consecutive steps
+of a group with idle lanes and one lane for each fallback cause.
 """
 
 import random
@@ -16,6 +20,7 @@ from rattle_tpu.correct import tpu_runner as jax_runner
 from rattle_tpu.ops import poa as jax_poa
 from rattle_tpu_torch.correct import pack_engine as pe
 from rattle_tpu_torch.correct import runner
+from rattle_tpu_torch.ops import kernels
 from rattle_tpu_torch.ops import poa as port_poa
 from tests.test_pack_engine import _oracle_msa, _random_pack
 
@@ -216,3 +221,198 @@ def test_pack_state_from_numpy_pads_scatter_targets():
     assert st["preds"].shape == (2, 9, 16) and int(st["preds"][1, 8, 0]) == -1
     assert st["node_rank"].shape == (2, 8)
     assert st["seqs"].dtype == torch.uint8 and st["n_nodes"].shape == (2,)
+
+
+# --------------------------------------------------------------------------
+# consecutive steps of the port's step against the JAX engine's _step, with
+# a lane that falls back on each cause and idle lanes
+# --------------------------------------------------------------------------
+
+N_SMALL = 1024         # node cap of the group (the JAX kernel's least)
+W_STEP = 1024
+# letters of the adversarial reads beyond ACGT: each read brings new ones,
+# so they align to nothing
+_RARE = "abcdefghijklmnopqrstuvwxyz"
+
+
+def _adversarial_lanes():
+    """(name, reads) of the 8 lanes of one group: three normal packs, a
+    pack that goes idle after 2 reads, an empty lane, and one lane for each
+    fallback cause (node cap: 400-base reads, each over letters of its own,
+    against N_SMALL nodes; pred cap: 18 reads whose first shared node gets a new
+    predecessor from each; group cap: 9 reads with a new letter at one
+    aligned column)."""
+    rng = random.Random(5)
+    shared = "".join(rng.choice("ACGT") for _ in range(20))
+    left = "".join(rng.choice("ACGT") for _ in range(15))
+    right = "".join(rng.choice("ACGT") for _ in range(15))
+    return [
+        ("normal0", _random_pack(rng, 6, 60, 8)),
+        ("normal1", _random_pack(rng, 5, 45, 8)),
+        ("normal2", _random_pack(rng, 6, 50, 6)),
+        ("idle_after_2", _random_pack(rng, 2, 40, 5)),
+        ("empty", []),
+        ("node_cap", ["".join(rng.choice(_RARE[2 * i:2 * i + 2])
+                              for _ in range(400)) for i in range(4)]),
+        ("pred_cap", [_RARE[i] + _RARE[i + 1] + _RARE[i + 2] + shared
+                      for i in range(0, 18)]),
+        ("group_cap", [left + _RARE[i] + right for i in range(9)]),
+    ]
+
+
+CAUSE_BITS = {"node_cap": 1, "pred_cap": 2, "group_cap": 4}
+RANK_SPACE = ("pred_rows", "npred_r", "letters_r")
+
+
+def _assert_state_equal(field, want, got, n_nodes, lead, tot_cap, what):
+    """The port's field against the JAX engine's over its defined range
+    (per node below n_nodes, grp_pos through grp_leader, path below
+    tot_cap; the spare slot dropped)."""
+    if field == "path":
+        got = got[:, :tot_cap]
+    elif field in pe.RANK_FIELDS or field == "node_rank":
+        pass
+    elif got.ndim >= 2 and got.shape[1] == want.shape[1] + 1:
+        got = got[:, :-1]
+    for li, nn in enumerate(n_nodes):
+        if field in ("letters", "npred", "preds", "grp_leader", "member_idx",
+                     "grp_size", "perm") + pe.RANK_FIELDS:
+            g, w_ = got[li, :nn], want[li, :nn]
+        elif field == "grp_pos":
+            g, w_ = got[li][lead[li, :nn]], want[li][lead[li, :nn]]
+        else:
+            g, w_ = got[li], want[li]
+        assert np.array_equal(g, w_), f"{what}: {field}, lane {li}"
+
+
+@pytest.fixture(scope="module")
+def consecutive():
+    """The adversarial group stepped by the JAX engine's _step and by the
+    port's (its plain kernels on the CPU) from the same initial state: the
+    numpy state of both after every step, and the rank space of the JAX
+    state after every step."""
+    lanes = _adversarial_lanes()
+    b = len(lanes)
+    r_max = max(len(reads) for _n, reads in lanes)
+    seqs = np.zeros((b, r_max, W_STEP), np.uint8)
+    lens = np.zeros((b, r_max), np.int32)
+    n_reads = np.zeros(b, np.int32)
+    for li, (_name, reads) in enumerate(lanes):
+        for t, s in enumerate(reads):
+            seqs[li, t, :len(s)] = np.frombuffer(s.encode("ascii"), np.uint8)
+            lens[li, t] = len(s)
+        n_reads[li] = len(reads)
+    tot_cap = int(lens.sum(axis=1).max())
+    jst = jax_pe._init_state(jnp.asarray(seqs.astype(np.int8)),
+                             jnp.asarray(lens), jnp.asarray(n_reads),
+                             n_cap=N_SMALL, r_cap=r_max, tot_cap=tot_cap)
+    pst = pe._init_state(torch.from_numpy(seqs), torch.from_numpy(lens),
+                         torch.from_numpy(n_reads), n_cap=N_SMALL,
+                         tot_cap=tot_cap)
+    steps = []
+    for t in range(r_max):
+        jst = jax_pe._step(jst, jnp.int32(t), w_eff=W_STEP, match=5,
+                           mismatch=-4, go=-8, ge=-6)
+        pe._step(pst, t, w_eff=W_STEP)
+        want = {k: np.asarray(v) for k, v in jst.items()}
+        ranks = pe.rank_space(pe.pack_state_from_numpy(want, device="cpu"))
+        want.update((f, x.numpy()) for f, x in zip(pe.RANK_FIELDS, ranks))
+        steps.append((want, {k: v.numpy().copy() for k, v in pst.items()}))
+    return dict(lanes=[n for n, _r in lanes], steps=steps, tot_cap=tot_cap)
+
+
+@pytest.mark.parametrize("field", STEP_FIELDS + RANK_SPACE)
+def test_consecutive_steps_equal_jax(consecutive, field):
+    """Every state field, and the rank-space inputs poa_rerank writes for
+    the next step, after each step of the group."""
+    for t, (want, got) in enumerate(consecutive["steps"]):
+        _assert_state_equal(field, want[field], got[field], want["n_nodes"],
+                            want["grp_leader"], consecutive["tot_cap"],
+                            f"step {t}")
+
+
+@pytest.mark.parametrize("cause", sorted(CAUSE_BITS))
+def test_each_cap_overflows_like_jax(consecutive, cause):
+    """The lane built to pass one cap falls back on that cause alone, at the
+    same step as in the JAX engine, and its state then stays put."""
+    li = consecutive["lanes"].index(cause)
+    fb = [int(want["fallback"][li]) for want, _g in consecutive["steps"]]
+    got = [int(g["fallback"][li]) for _w, g in consecutive["steps"]]
+    assert got == fb and fb[-1] == CAUSE_BITS[cause]
+    first = fb.index(CAUSE_BITS[cause])
+    after = [g["n_nodes"][li] for _w, g in consecutive["steps"][first:]]
+    assert len(set(after)) == 1
+
+
+@pytest.mark.parametrize("lane", ["idle_after_2", "empty"])
+def test_idle_lanes_stay_put(consecutive, lane):
+    """A lane past its last read, and a lane with no read, keep their state
+    (the re-rank still runs on them) and never fall back."""
+    li = consecutive["lanes"].index(lane)
+    steps = consecutive["steps"]
+    start = 2 if lane == "idle_after_2" else 0
+    ref = steps[start - 1][1] if start else None
+    for want, got in steps[start:]:
+        assert got["fallback"][li] == 0
+        if ref is None:
+            assert got["n_nodes"][li] == 0 and got["n_groups"][li] == 0
+            continue
+        for f in ("n_nodes", "n_groups", "node_rank", "perm", "grp_pos",
+                  "letters", "preds") + pe.RANK_FIELDS:
+            assert np.array_equal(got[f][li], ref[f][li]), f
+
+
+def _small_state():
+    """The port's state of a 2-lane group of short packs, after one step."""
+    packs = [["ACGTACGTAA", "ACGTTCGTAA"], ["TTGACA", "TTGCA"]]
+    b, w = len(packs), 128
+    seqs = np.zeros((b, 2, w), np.uint8)
+    lens = np.zeros((b, 2), np.int32)
+    for li, pack in enumerate(packs):
+        for t, s in enumerate(pack):
+            seqs[li, t, :len(s)] = np.frombuffer(s.encode("ascii"), np.uint8)
+            lens[li, t] = len(s)
+    st = pe._init_state(torch.from_numpy(seqs), torch.from_numpy(lens),
+                        torch.tensor([2, 2], dtype=torch.int32), n_cap=64,
+                        tot_cap=int(lens.sum(axis=1).max()))
+    return pe._step(st, 0, w_eff=w)
+
+
+@pytest.mark.parametrize("bad", ["keys_dtype", "width", "step", "n_cap",
+                                 "rank_rows"])
+def test_step_kernels_reject_bad_state(bad):
+    """poa_thread and poa_rerank check the state's types and shapes the way
+    poa_align checks its inputs."""
+    st = _small_state()
+    packed = torch.zeros((2, 128), dtype=torch.int32)
+    zeros = torch.zeros(2, dtype=torch.int32)
+    t, w = 1, 128
+    if bad == "keys_dtype":
+        st["keys"] = st["keys"].to(torch.int64)
+    elif bad == "width":
+        w = 256
+        packed = torch.zeros((2, 256), dtype=torch.int32)
+    elif bad == "step":
+        t = 2
+    elif bad == "n_cap":
+        for f in ("letters", "npred", "grp_leader", "member_idx", "grp_size",
+                  "grp_pos", "perm", "keys"):
+            st[f] = torch.zeros((2, kernels.POA_MAX_N + 2), dtype=torch.int32)
+    elif bad == "rank_rows":
+        st["pred_rows"] = st["pred_rows"][:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        if bad == "rank_rows":
+            kernels.poa_rerank(st)
+        else:
+            kernels.poa_thread(st, t, w, packed, zeros, zeros)
+
+
+def test_step_keeps_the_rank_space_between_steps():
+    """After a step the state holds the next step's poa_align inputs,
+    equal to rank_space of the new state for the ranks below n_nodes."""
+    st = _small_state()
+    want = pe.rank_space(st)
+    nn = st["n_nodes"]
+    for f, x in zip(pe.RANK_FIELDS, want):
+        for li in range(2):
+            assert torch.equal(st[f][li, :nn[li]], x[li, :nn[li]]), f

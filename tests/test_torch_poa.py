@@ -122,8 +122,11 @@ def batch():
         jnp.asarray(active), jnp.asarray(rank_tab), interpret=True)
     ref = [np.asarray(x) for x in ref]
 
+    # the lane's activity as a pack step: step 0 < n_reads = active, no
+    # fallback
     args = [torch.from_numpy(x) for x in
-            (pred_rows, npred, letters, n_nodes, seq, seq_len, active)]
+            (pred_rows, npred, letters, n_nodes, seq, seq_len)]
+    args += [0, torch.from_numpy(active), torch.zeros(b, dtype=torch.int32)]
     got = [x.numpy() for x in kernels.poa_align(*args)]
     plain = [x.numpy() for x in kernels.poa_align_plain(*args)]
     return dict(lanes=lanes, rank_nodes=rank_nodes_of, ref=ref, got=got,
@@ -217,3 +220,40 @@ def test_poa_align_rejects_bad_inputs(batch):
     with pytest.raises(ValueError):
         kernels.poa_align(*args[:4], args[4][:, :1000].contiguous(),
                           *args[5:])
+
+
+def test_poa_align_reads_the_pack_step_in_place(batch):
+    """The read as a row-strided view of a pack's [B, R, W] reads, its
+    length as a strided column, and the lanes' activity from a later step
+    t, n_reads and fallback: the same outputs as contiguous inputs at step
+    0."""
+    (pred_rows, npred, letters, n_nodes, seq, seq_len, _step, active,
+     _fallback) = batch["args"]
+    b = seq.shape[0]
+    t = 1
+    seqs = torch.zeros((b, 3, W), dtype=torch.uint8)
+    seqs[:, t] = seq
+    lens = torch.zeros((b, 3), dtype=torch.int32)
+    lens[:, t] = seq_len
+    # active lanes: t < n_reads and no fallback; the others one or the other
+    n_reads = torch.where(active > 0, 3, 1).to(torch.int32)
+    fallback = torch.where(torch.arange(b) % 2 == 0, 0, 4).to(torch.int32)
+    fallback = torch.where(active > 0, 0, fallback).to(torch.int32)
+    got = kernels.poa_align(pred_rows, npred, letters, n_nodes,
+                            seqs[:, t, :], lens[:, t], t, n_reads, fallback)
+    want = kernels.poa_align(*batch["args"])
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+def test_poa_align_rejects_bad_step_inputs(batch):
+    pred_rows, npred, letters, n_nodes, seq, seq_len = batch["args"][:6]
+    b = seq.shape[0]
+    flags = torch.zeros(b, dtype=torch.int32)
+    with pytest.raises(ValueError):   # a column stride other than 1
+        kernels.poa_align(pred_rows, npred, letters, n_nodes,
+                          seq.t().contiguous().t(), seq_len, 0, flags + 1,
+                          flags)
+    with pytest.raises(ValueError):   # n_reads of another lane count
+        kernels.poa_align(pred_rows, npred, letters, n_nodes, seq, seq_len,
+                          0, flags[:1], flags)
