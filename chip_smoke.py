@@ -51,10 +51,16 @@ Phases, each ending in one summary line:
      read step of a group at W = 1024, 2048 and 4096 whose lanes are noisy
      packs, a pack that goes idle, an empty lane, unrelated reads and one
      lane for each fallback cause (node, predecessor and group cap, each
-     checked); then timed as lone calls at the main path's lane counts
-     (256 / 128 / 64 lanes) after 12 read steps, beside their plain
-     versions and their bounds (phase 6 holds them on the main path's own
-     groups too);
+     checked), with poa_rerank's count of lanes it had to sort
+     (``sort_lanes``, 0: every lane ordered by counting); then poa_rerank
+     on that group's last state with the keys of three lanes broken
+     (a repeated old group position, a negative key, new groups' keys
+     decreasing), every field exact and exactly those lanes sorted; then
+     timed at the main path's lane counts (256 / 128 / 64 lanes) after 12
+     read steps, as lone calls and as device time a launch (launches
+     queued back to back behind a sleep kernel), beside their plain
+     versions, their bounds and, for poa_rerank, torch.sort of the keys
+     (phase 6 holds them on the main path's own groups too);
   5. the main path: ``cluster --rna`` on 8,192 synthetic reads through the
      port's CLI on cuda, then ``cluster_summary`` and ``extract_clusters``;
      then ``cluster`` in cDNA mode (both strands) and ``cluster --rna
@@ -70,10 +76,12 @@ Phases, each ending in one summary line:
   6. the correct path: ``correct`` on the ``--rna`` run's reads and
      clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
      three widths; one launch of each of poa_align, poa_thread and
-     poa_rerank a read step, its t_steps_s); the run's largest group at
-     each width (its uploads and step arguments kept by hooks on the
-     engine) is stepped again with poa_thread and poa_rerank against their
-     plain versions, every state field exact after every step; the run
+     poa_rerank a read step, its t_steps_s, poa_rerank's sort_lanes); the
+     run's largest group at each width (its uploads and step arguments kept
+     by hooks on the engine) is stepped again with poa_thread and
+     poa_rerank against their plain versions, every state field exact
+     after every step, under torch.profiler: each kernel's device time
+     summed over the steps beside the sum of each step's bound; the run
      again under torch.profiler for its CUDA launch calls, then ``polish
      --rna --summary`` on its consensi.fq;
   7. parity on 256 reads of the same generator: ``cluster`` (rna, cDNA) and
@@ -802,8 +810,6 @@ def phase_score_path(dev, cap):
 
 POA_CAPTURE_STEP = 12
 POA_LANES = 4
-# transcript lengths whose reads fill the three width configs
-POA_REF_LENS = (900, 1900, 3000)
 WIDTHS = [1024, 2048, 4096]
 
 
@@ -875,8 +881,9 @@ def _poa_adversarial(dev, w: int, n_cap: int):
 def phase_poa(dev):
     from rattle_tpu_torch.correct.pack_engine import CONFIGS
     from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.pipeline.profile_correct import REF_LENS
     rows = []
-    for (w, n_cap, _lanes), ref_len in zip(CONFIGS, POA_REF_LENS):
+    for (w, n_cap, _lanes), ref_len in zip(CONFIGS, REF_LENS):
         group = _capture_step(dev, w, n_cap, ref_len, seed=w)
         # four more lanes: lane 0 with an empty graph, lane 1 past its last
         # read, lane 2 with a read unrelated to its graph, lane 3 fallen
@@ -976,7 +983,6 @@ def phase_poa(dev):
 
 # phase 4b: letters of the adversarial reads beyond ACGT, each lane's own
 _RARE = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
-STEP_CAPTURE = 12       # read steps the timed groups are grown for
 STEP_NAMES = ("pack", "pack", "pack", "pack", "idle_after_3", "empty",
               "unrelated", "node_cap", "pred_cap", "group_cap")
 STEP_CAUSES = {"node_cap": 1, "pred_cap": 2, "group_cap": 4}
@@ -1006,24 +1012,6 @@ def _step_lanes(w: int, ref_len: int, seed: int):
         [rng.choice(_RARE[2 * i:2 * i + 2], w - 2) for i in range(5)],
         [np.concatenate([_RARE[i:i + 3], shared]) for i in range(18)],
         [np.concatenate([left, _RARE[i:i + 1], right]) for i in range(9)]]
-
-
-def _pack_group(dev, lanes, w: int, n_cap: int) -> dict:
-    """The pack engine's initial state of a group whose lanes read
-    ``lanes`` (lists of uint8 arrays) at width ``w``."""
-    from rattle_tpu_torch.correct import pack_engine as pe
-    b, r_max = len(lanes), max(len(x) for x in lanes)
-    seqs = np.zeros((b, r_max, w), np.uint8)
-    lens = np.zeros((b, r_max), np.int32)
-    for li, reads in enumerate(lanes):
-        for t, x in enumerate(reads):
-            seqs[li, t, :len(x)] = x
-            lens[li, t] = len(x)
-    n_reads = np.array([len(x) for x in lanes], np.int32)
-    return pe._init_state(
-        torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev),
-        torch.from_numpy(n_reads).to(dev), n_cap=n_cap,
-        tot_cap=max(int(lens.sum(axis=1).max()), 1))
 
 
 def _clone_state(st: dict) -> dict:
@@ -1068,111 +1056,124 @@ def _step_pair(st: dict, t: int, w: int, scratch=None, **scores):
     return aligned, plain
 
 
-def _lone_ms(fn, states) -> float:
-    """Median CUDA-event time of ``fn(state)``, one call on each state."""
-    fn(states[0])
-    times = []
-    for state in states[1:]:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(state)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-# bytes each step kernel must move, a live node or position at a time:
-# poa_thread reads a position's base and writes its path entry (5), gathers
-# a matched node's perm, letter, leader, group size and members, letters,
-# predecessors and group position (120), writes a new node's letter, leader,
-# member slot and key (16), and reads an old node's leader and group
-# position and writes its key (12); poa_rerank reads a live node's key,
-# group size, leader, member slot, predecessors, count and letter (84) and
-# writes its group position, rank, perm entry and rank-space row (88)
-THREAD_POS_BYTES = 125
-THREAD_NEW_BYTES = 16
-THREAD_OLD_BYTES = 12
-RERANK_NODE_BYTES = 172
-
-
 def _step_rows(dev, w: int, n_cap: int, lanes: int, ref_len: int):
-    """poa_thread and poa_rerank timed as lone calls at the main path's
-    lane count of width ``w`` (the config's cap), on a group of noisy packs
-    grown for STEP_CAPTURE read steps, beside their plain versions and
-    their bounds (bytes of the live nodes and positions)."""
-    from rattle_tpu_torch.correct import pack_engine as pe
+    """poa_thread and poa_rerank at the main path's lane count of width
+    ``w`` (the config's cap), on a group of noisy packs grown for
+    STEP_CAPTURE read steps (profile_correct.grown_group), timed as lone
+    calls and as launches queued back to back (device time a launch),
+    beside their plain versions and their bounds (bytes of the live nodes
+    and positions); poa_rerank's row also times torch.sort of the keys."""
     from rattle_tpu_torch.ops import kernels
-    from rattle_tpu_torch.utils.synth import _BASES, mutate
-    rng = np.random.default_rng(w + 1)
-    group = []
-    for _ in range(lanes):
-        ref = rng.choice(_BASES, int(ref_len * rng.uniform(0.9, 1.0)))
-        group.append(sorted((mutate(rng, ref, 0.08)[:w - 2]
-                             for _ in range(STEP_CAPTURE + 1)), key=len,
-                            reverse=True))
-    st = _pack_group(dev, group, w, n_cap)
-    scratch = torch.empty(kernels.poa_scratch_elems(lanes, n_cap, w),
-                          dtype=torch.int16, device=dev)
-    for t in range(STEP_CAPTURE):
-        pe._step(st, t, w_eff=w, scratch=scratch)
-    t = STEP_CAPTURE
-    aligned = pe._align(st, t, w, scratch=scratch)
-    del scratch
-    torch.cuda.synchronize()
+    from rattle_tpu_torch.pipeline.profile_correct import (grown_group,
+                                                           step_rows)
+    st, t, aligned = grown_group(dev, w, n_cap, lanes, ref_len)
     check(int(st["fallback"].sum()) == 0, f"phase 4b W={w}: a lane fell back")
-    nn_old = st["n_nodes"].cpu().numpy()
-    slen = st["lens"][:, t].cpu().numpy()
-    states = [_clone_state(st) for _ in range(6)]
-    ms_t = _lone_ms(lambda x: kernels.poa_thread(x, t, w, *aligned), states)
+    rows, done = step_rows(st, t, w, aligned)
     plain = _clone_state(st)
     ms_tp = time_ms(lambda: kernels.poa_thread_plain(plain, t, w, *aligned),
                     reps=1, warmup=0)
-    nn_new = states[0]["n_nodes"].cpu().numpy()
-    ms_r = _lone_ms(kernels.poa_rerank, states)
     ms_rp = time_ms(lambda: kernels.poa_rerank_plain(plain), reps=1,
                     warmup=0)
-    check(not _state_diff(states[-1], plain), f"phase 4b W={w}: timed "
-          f"group differs: {_state_diff(states[-1], plain)}")
-    t_bytes = int((slen * THREAD_POS_BYTES + (nn_new - nn_old)
-                   * THREAD_NEW_BYTES + nn_old * THREAD_OLD_BYTES).sum())
-    r_bytes = int(nn_new.sum()) * RERANK_NODE_BYTES
-    rows = []
-    for name, ms, plain_ms, nbytes in (("poa_thread", ms_t, ms_tp, t_bytes),
-                                       ("poa_rerank", ms_r, ms_rp, r_bytes)):
-        row = dict(kernel=name, shape=[lanes, n_cap, w], step=t,
-                   nodes=[int(nn_old.sum()), int(nn_new.sum())],
-                   max_nodes=int(nn_new.max()), read_bases=int(slen.sum()),
-                   bytes=nbytes, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
-                   max_abs_err=0)
-        rows.append(row)
-        print(f"  {name} W={w} N={n_cap} lanes={lanes} step {t}: "
-              f"{int(nn_new.sum())} nodes (largest lane {row['max_nodes']}),"
-              f" {row['read_bases']} read bases; kernel {ms:.4f} ms, plain "
+    check(not _state_diff(done, plain), f"phase 4b W={w}: timed "
+          f"group differs: {_state_diff(done, plain)}")
+    for row, plain_ms in zip(rows, (ms_tp, ms_rp)):
+        row.update(shape=[lanes, n_cap, w], plain_ms=plain_ms,
+                   library_ms=None, bound_by="bytes", max_abs_err=0)
+        print(f"  {row['kernel']} W={w} N={n_cap} lanes={lanes} step {t}: "
+              f"{row['nodes'][1]} nodes (largest lane {row['max_nodes']}),"
+              f" {row['read_bases']} read bases; kernel {row['ms']:.4f} ms "
+              f"lone, {row['device_ms']:.4f} ms device a launch, plain "
               f"{plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms (bytes, "
-              f"{nbytes} B), {100 * row['bound_ms'] / ms:.2f}% of the bound")
+              f"{row['bytes']} B), {100 * row['share']:.2f}% of the bound"
+              + (f"; torch.sort of the keys {row['sort_ms']:.4f} ms"
+                 if row["sort_ms"] is not None else ""))
     return rows
+
+
+def _sort_lanes() -> int:
+    """poa_rerank's count of lanes ordered by its sort, on every card."""
+    from rattle_tpu_torch.ops import kernels
+    return sum(int(c.item()) for c in kernels.poa_rerank.sort_lanes.values())
+
+
+def _reset_sort_lanes() -> None:
+    from rattle_tpu_torch.ops import kernels
+    for c in kernels.poa_rerank.sort_lanes.values():
+        c.zero_()
+
+
+# how phase 4b breaks the structure of one pack lane's keys, each failing
+# poa_rerank's check: two old leaders at one group position, a negative key,
+# two new groups' keys decreasing in id order
+SORT_CASES = ("repeat_x", "negative", "decreasing_c")
+
+
+def _sort_branch(st: dict, w: int) -> int:
+    """poa_rerank on a copy of ``st`` whose keys break the structure on the
+    first len(SORT_CASES) lanes (two old leaders' keys rewritten, so the
+    leaders still take the first G positions), against its plain version,
+    every field exact; the kernel's sort must order exactly those lanes.
+    Returns the lanes it counted."""
+    from rattle_tpu_torch.ops import kernels
+    got = _clone_state(st)
+    keys = got["keys"]
+    n = got["node_rank"].shape[1]
+    sk, half = kernels.POA_SK, kernels.POA_HALF
+    # the kernels leave the keys from n_nodes on unwritten and read them as
+    # BIG; the plain versions write and read BIG there
+    keys.masked_fill_(torch.arange(n + 1, device=keys.device)[None, :]
+                      >= got["n_nodes"][:, None], kernels.POA_BIG)
+    for li, case in enumerate(SORT_CASES):
+        k = keys[li, :n]
+        old = torch.nonzero((k < kernels.POA_BIG) & (k % sk == half))
+        check(len(old) >= 2, f"phase 4b W={w}: lane {li} has fewer than two "
+              "old leaders")
+        i, j = old.flatten()[:2].tolist()
+        if case == "repeat_x":
+            keys[li, j] = keys[li, i]
+        elif case == "negative":
+            keys[li, j] = -1
+        else:
+            x = int(keys[li, j]) // sk
+            keys[li, i], keys[li, j] = x * sk + 1, x * sk
+    want = _clone_state(got)
+    _reset_sort_lanes()
+    kernels.poa_rerank(got)
+    kernels.poa_rerank_plain(want)
+    bad = _state_diff(got, want)
+    check(not bad, f"phase 4b W={w}: sort branch: {bad} differ from the "
+          "plain version")
+    sorted_lanes = _sort_lanes()
+    check(sorted_lanes == len(SORT_CASES), f"phase 4b W={w}: the kernel "
+          f"sorted {sorted_lanes} lanes, not the {len(SORT_CASES)} broken")
+    return sorted_lanes
 
 
 def phase_step(dev):
     """poa_thread and poa_rerank against their plain versions, every state
     field exact after every read step of an adversarial group at each width
     (``_step_lanes``: noisy packs, an idle and an empty lane, unrelated
-    reads and one lane for each fallback cause, each cause checked), then
-    timed as lone calls at the main path's lane counts."""
+    reads and one lane for each fallback cause, each cause checked; no lane
+    may take poa_rerank's sort), then poa_rerank on the last state with the
+    structure of its keys broken on three lanes (``_sort_branch``), then
+    timed at the main path's lane counts."""
     from rattle_tpu_torch.correct.pack_engine import CONFIGS
+    from rattle_tpu_torch.pipeline.profile_correct import (REF_LENS,
+                                                           pack_group)
     rows = {}
-    for (w, n_cap, lanes), ref_len in zip(CONFIGS, POA_REF_LENS):
+    for (w, n_cap, lanes), ref_len in zip(CONFIGS, REF_LENS):
         lane_reads = _step_lanes(w, ref_len, seed=w + 2)
-        st = _pack_group(dev, lane_reads, w, n_cap)
+        st = pack_group(dev, lane_reads, w, n_cap)
         steps = st["seqs"].shape[1]
+        _reset_sort_lanes()
         for t in range(steps):
             _aligned, plain = _step_pair(st, t, w)
             bad = _state_diff(st, plain)
             check(not bad, f"phase 4b W={w} step {t}: {bad} differ from the "
                   "plain versions")
+        sorted_lanes = _sort_lanes()
+        check(sorted_lanes == 0, f"phase 4b W={w}: poa_rerank sorted "
+              f"{sorted_lanes} lanes of the group")
         fb = st["fallback"].tolist()
         nn = st["n_nodes"].tolist()
         for name, bit in STEP_CAUSES.items():
@@ -1184,83 +1185,41 @@ def phase_step(dev):
               f"phase 4b W={w}: a lane fell back: {fb}")
         check(nn[STEP_NAMES.index("empty")] == 0,
               f"phase 4b W={w}: the empty lane grew")
+        forced = _sort_branch(st, w)
         print(f"  poa_thread + poa_rerank W={w} N={n_cap}: {steps} steps of "
               f"{len(STEP_NAMES)} lanes {list(zip(STEP_NAMES, nn, fb))} "
-              "(name, nodes, fallback): every field exact after every step")
+              "(name, nodes, fallback): every field exact after every step, "
+              f"sort_lanes {sorted_lanes}; keys broken on {forced} lanes "
+              f"{SORT_CASES}: sort_lanes {forced}, every field exact")
         del st, plain
         rows[w] = _step_rows(dev, w, n_cap, lanes, ref_len)
         torch.cuda.empty_cache()
     print("phase 4b poa_thread + poa_rerank: every state field exact against "
           "the plain versions after every step at W = 1024, 2048, 4096 (noisy "
-          "packs, idle, empty and unrelated-read lanes, each fallback cause)")
+          "packs, idle, empty and unrelated-read lanes, each fallback cause; "
+          "no lane sorted), and poa_rerank's sort exact on the lanes whose "
+          "keys were broken")
     return rows
 
 
-class _GroupCapture:
-    """Hooks on correct/pack_engine.py's ``_init_state`` and ``_step`` for
-    one ``correct`` run: at each width, the inputs of the group with the
-    most lanes (the first on ties; references to the engine's uploads, no
-    copy and no launch) and the arguments of each of its read steps."""
-
-    def __init__(self):
-        from rattle_tpu_torch.correct import pack_engine as pe
-        self._init, self._step = pe._init_state, pe._step
-        self.groups = {}
-        self._cur = None
-
-    def init_state(self, seqs, lens, n_reads, n_cap, tot_cap):
-        w, b = seqs.shape[2], seqs.shape[0]
-        self._cur = None
-        if b > self.groups.get(w, {}).get("lanes", 0):
-            self._cur = self.groups[w] = dict(
-                lanes=b, inputs=(seqs, lens, n_reads), n_cap=n_cap,
-                tot_cap=tot_cap, steps=[])
-        return self._init(seqs, lens, n_reads, n_cap=n_cap, tot_cap=tot_cap)
-
-    def step(self, st, t, w_eff=None, **kw):
-        if self._cur is not None:
-            scores = {k: v for k, v in kw.items() if k != "scratch"}
-            self._cur["steps"].append((t, w_eff, scores))
-        return self._step(st, t, w_eff=w_eff, **kw)
-
-
-@contextlib.contextmanager
-def _capturing_groups(cap: _GroupCapture):
-    from rattle_tpu_torch.correct import pack_engine as pe
-    pe._init_state, pe._step = cap.init_state, cap.step
-    try:
-        yield
-    finally:
-        pe._init_state, pe._step = cap._init, cap._step
-
-
-def _replay_groups(dev, cap: _GroupCapture) -> dict:
-    """Every read step of each captured group again, poa_thread and
-    poa_rerank against their plain versions on the same alignment: every
-    state field exact after every step, at the group's own lane count."""
-    from rattle_tpu_torch.correct import pack_engine as pe
-    from rattle_tpu_torch.ops import kernels
+def _replay_groups(dev, cap) -> dict:
+    """Every read step of each captured group again
+    (profile_correct.replay_device_ms), poa_thread and poa_rerank against
+    their plain versions on the same alignment: every state field exact
+    after every step, at the group's own lane count, with the kernels'
+    device time summed over the steps beside the sum of each step's
+    bound."""
+    from rattle_tpu_torch.pipeline.profile_correct import replay_device_ms
     check(sorted(cap.groups) == WIDTHS,
           f"correct: no group captured at some width: {sorted(cap.groups)}")
-    rows = {}
-    for w, g in sorted(cap.groups.items()):
-        st = pe._init_state(*g["inputs"], n_cap=g["n_cap"],
-                            tot_cap=g["tot_cap"])
-        scratch = torch.empty(
-            kernels.poa_scratch_elems(g["lanes"], g["n_cap"], w),
-            dtype=torch.int16, device=dev)
-        for t, w_eff, scores in g["steps"]:
-            _aligned, plain = _step_pair(st, t, w if w_eff is None else w_eff,
-                                         scratch, **scores)
-            bad = _state_diff(st, plain)
-            check(not bad, f"correct group W={w} step {t}: {bad} differ "
-                  "from the plain versions")
-        nn = st["n_nodes"]
-        rows[w] = dict(lanes=g["lanes"], steps=len(g["steps"]),
-                       nodes=int(nn.sum()), max_nodes=int(nn.max()),
-                       fallback_lanes=int((st["fallback"] != 0).sum()))
-        del st, plain, scratch
-    return rows
+
+    def step(st, t, w, scratch, scores):
+        _aligned, plain = _step_pair(st, t, w, scratch, **scores)
+        bad = _state_diff(st, plain)
+        check(not bad, f"correct group W={st['seqs'].shape[2]} step {t}: "
+              f"{bad} differ from the plain versions")
+
+    return replay_device_ms(dev, cap, step)
 
 
 def _cli(argv, capture: bool = False):
@@ -1464,6 +1423,8 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     its consensi, both through the CLI on cuda."""
     from rattle_tpu_torch.correct.pack_engine import _cfg_for
     from rattle_tpu_torch.io import fastx, hpsio
+    from rattle_tpu_torch.pipeline.profile_correct import (GroupCapture,
+                                                           capturing_groups)
     clusters = hpsio.read_clusters(clusters_out)
     reads = fastx.read_multiple_inputs([fq], [])
     # packs the run will form (build_packs: split 200, min_reads 5)
@@ -1487,10 +1448,12 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     out = os.path.join(WORK, "correct_out")
     os.makedirs(out)
     torch.cuda.reset_peak_memory_stats()
-    cap = _GroupCapture()
-    with _capturing_groups(cap):
+    cap = GroupCapture()
+    _reset_sort_lanes()
+    with capturing_groups(cap):
         wall, launches, st = _poa_run(["correct", "-i", fq, "-c",
                                        clusters_out, "-o", out])
+    sorted_lanes = _sort_lanes()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_corr = _fastq_count(os.path.join(out, "corrected.fq"))
     n_unc = _fastq_count(os.path.join(out, "uncorrected.fq"))
@@ -1510,19 +1473,28 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
                corrected=n_corr, uncorrected=n_unc, consensi=n_cons,
                correct_s=wall, poa_mbases_per_s=bases / 1e6 / wall,
                peak_mem_gib=peak, launches=launches, stats=st,
-               t_steps_s=st.get("t_steps_s"))
+               t_steps_s=st.get("t_steps_s"), sort_lanes=sorted_lanes)
     print(f"  correct: {n_corr} corrected + {n_unc} uncorrected reads, "
           f"{n_cons} consensi; packs by width {widths}, largest "
           f"{biggest} reads; {wall:.2f} s, t_steps_s {res['t_steps_s']}, "
           f"{res['poa_mbases_per_s']:.4f} Mbases/s aligned, peak "
-          f"{peak:.2f} GiB, launches {launches}")
+          f"{peak:.2f} GiB, launches {launches}, poa_rerank sort_lanes "
+          f"{sorted_lanes} (lanes ordered by its sort, not by counting)")
     print(f"  correct engine: {_fmt_stats(st)}")
     # the kernels held to their plain versions on the run's own groups
     groups = _replay_groups(torch.device("cuda"), cap)
     del cap
     res["captured_groups"] = groups
     print("  poa_thread + poa_rerank on the run's largest group at each "
-          f"width, every field exact after every step: {groups}")
+          "width, every field exact after every step; device time summed "
+          "over its steps against the summed bound:")
+    for w, g in groups.items():
+        print(f"    W={w}: {g['lanes']} lanes x {g['steps']} steps, "
+              f"{g['nodes']} nodes (largest lane {g['max_nodes']}), "
+              f"{g['fallback_lanes']} lanes fallen back; " + "; ".join(
+                  f"{k} {g[k]['device_ms']:.3f} ms, bound "
+                  f"{g[k]['bound_ms']:.3f} ms ({100 * g[k]['share']:.1f}%)"
+                  for k in ("poa_thread", "poa_rerank")))
     # the same run under the profiler: the CUDA runtime's launch calls
     from rattle_tpu_torch.pipeline.profile_cluster import profiled_launches
     out_p = os.path.join(WORK, "correct_profiled")

@@ -47,7 +47,7 @@ _SIGNATURES = {
                      [_P] * 11 + [_I, _P, _L, _P, _L, _I, _I, _P, _P]),
     "greedy_owner": ("greedy_owner_launch", [_P, _I, _I, _P, _P]),
     "poa_thread": ("poa_thread_launch", [_P] * 21 + [_I] * 7 + [_P]),
-    "poa_rerank": ("poa_rerank_launch", [_P] * 15 + [_I] * 2 + [_P]),
+    "poa_rerank": ("poa_rerank_launch", [_P] * 16 + [_I] * 2 + [_P]),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 

@@ -24,11 +24,16 @@
 // Bound and design.  A step is a chain of dependent gathers a position
 // (rank -> node -> leader -> group -> members -> their letters) and a few
 // block scans, on at most 4,096 positions and the lane's old nodes: latency,
-// not bytes.  One CTA of 1,024 threads a lane, four consecutive positions a
-// thread, so each scan is a thread-local pass and one block scan (warp
-// shuffles and a row of warp totals).  Every gather reads the state as it was
-// before the step's scatters, as JAX's functional code does: all gathers come
-// first, then a barrier, then the scatters.  The scatters are conflict-free
+// not bytes.  One CTA a lane, sized to the step's width w: 256, 512 or
+// 1,024 threads at w <= 1,024, 2,048 or 4,096, four consecutive positions a
+// thread, so that no thread is idle at the narrow steps and more lanes share
+// an SM to hide the gathers' latency.  Each scan is a thread-local pass, a
+// warp pass by shuffles and one barrier, after which every warp reads all
+// warps' totals: the new-node count alone, then the suffix minimum, prefix
+// maximum, OR and sum of the keys and counters together in one pass.  Every
+// gather reads the state as it was before the step's scatters, as JAX's
+// functional code does: all gathers come first, and the last scan's barrier
+// comes between them and the scatters.  The scatters are conflict-free
 // within a lane by construction (a read's path meets each group once and
 // each node once), the two counters they bump are atomics, and a write the
 // plain version masks into the spare slot is not made.
@@ -38,76 +43,102 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 4096;
-constexpr int kPer = kMaxW / kThreads;  // positions a thread, consecutive
+constexpr int kPer = 4;                 // positions a thread, consecutive
 constexpr int kPmax = 16;               // predecessor slots a node
 constexpr int kGa = 8;                  // members a group
 constexpr int kSk = 4096;               // key stride of the re-rank
 constexpr int kHalf = kSk - 1;
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kUnroll = 4;              // node-loop iterations in flight
-
-struct Sum {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-struct Min {
-  __device__ int operator()(int a, int b) const { return min(a, b); }
-};
-struct Max {
-  __device__ int operator()(int a, int b) const { return max(a, b); }
-};
-struct Or {
-  __device__ int operator()(int a, int b) const { return a | b; }
-};
-
-// Exclusive scan of one value a thread over the block in thread order (kRev:
-// in reverse order, a suffix scan), ``id`` the identity of ``op``; ``total``
-// takes ``op`` over every thread.  ``red`` holds kWarps ints; the call starts
-// with a barrier, so calls may follow each other directly.
-template <bool kRev, class Op>
-__device__ int block_scan(int v, int id, Op op, int* red, int& total) {
-  const int wl = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = kRev ? __shfl_down_sync(kFull, x, d)
-                       : __shfl_up_sync(kFull, x, d);
-    if (kRev ? wl + d < 32 : wl >= d) x = op(x, y);
-  }
-  int ex = kRev ? __shfl_down_sync(kFull, x, 1) : __shfl_up_sync(kFull, x, 1);
-  if (kRev ? wl == 31 : wl == 0) ex = id;
-  __syncthreads();  // a previous call's readers are done with red
-  if (kRev ? wl == 0 : wl == 31) red[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = red[wl];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = kRev ? __shfl_down_sync(kFull, s, d)
-                         : __shfl_up_sync(kFull, s, d);
-      if (kRev ? wl + d < 32 : wl >= d) s = op(s, y);
-    }
-    red[wl] = s;  // inclusive over warps
-  }
-  __syncthreads();
-  total = kRev ? red[0] : red[kWarps - 1];
-  const int before = kRev ? (warp + 1 < kWarps ? red[warp + 1] : id)
-                          : (warp > 0 ? red[warp - 1] : id);
-  return op(before, ex);
-}
 
 __device__ __forceinline__ int clampn(int x, int n) {
   return min(max(x, 0), n - 1);
 }
 
+// Exclusive sum of one value a thread over the block in thread order;
+// ``total`` takes the sum.  ``red`` [32] is this call's alone; one barrier.
+template <int kT>
+__device__ int excl_sum(int v, int* red, int& total) {
+  const int wl = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (wl >= d) x += y;
+  }
+  if (wl == 31) red[warp] = x;
+  __syncthreads();
+  const int t = wl < kT / 32 ? red[wl] : 0;
+  int y = t;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int z = __shfl_up_sync(kFull, y, d);
+    if (wl >= d) y += z;
+  }
+  total = __shfl_sync(kFull, y, 31);
+  return __shfl_sync(kFull, y - t, warp) + x - v;
+}
+
+// One pass of four block scans in thread order: ``smin`` takes the minimum
+// of ``vmin`` over the later threads (kBig if none), ``pmax`` the maximum of
+// ``vmax`` over the earlier ones (-1 if none), ``all_or`` and ``all_sum``
+// the OR and the sum over every thread.  ``red`` [4][32] is this call's
+// alone; one barrier.
+template <int kT>
+__device__ void scan4(int vmin, int vmax, int vor, int vsum, int (*red)[32],
+                      int& smin, int& pmax, int& all_or, int& all_sum) {
+  const int wl = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int mn = vmin, mx = vmax, o = vor, sm = vsum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int zn = __shfl_down_sync(kFull, mn, d);
+    const int zx = __shfl_up_sync(kFull, mx, d);
+    if (wl + d < 32) mn = min(mn, zn);
+    if (wl >= d) mx = max(mx, zx);
+    o |= __shfl_xor_sync(kFull, o, d);
+    sm += __shfl_xor_sync(kFull, sm, d);
+  }
+  int mn_after = __shfl_down_sync(kFull, mn, 1);
+  int mx_before = __shfl_up_sync(kFull, mx, 1);
+  if (wl == 31) mn_after = kBig;
+  if (wl == 0) mx_before = -1;
+  if (wl == 0) {
+    red[0][warp] = mn;  // the warp's minimum
+    red[2][warp] = o;
+    red[3][warp] = sm;
+  }
+  if (wl == 31) red[1][warp] = mx;  // the warp's maximum
+  __syncthreads();
+  const bool in = wl < kT / 32;
+  int wn = in ? red[0][wl] : kBig, wx = in ? red[1][wl] : -1;
+  int wo = in ? red[2][wl] : 0, ws = in ? red[3][wl] : 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int zn = __shfl_down_sync(kFull, wn, d);
+    const int zx = __shfl_up_sync(kFull, wx, d);
+    if (wl + d < 32) wn = min(wn, zn);
+    if (wl >= d) wx = max(wx, zx);
+    wo |= __shfl_xor_sync(kFull, wo, d);
+    ws += __shfl_xor_sync(kFull, ws, d);
+  }
+  int wn_after = __shfl_down_sync(kFull, wn, 1);
+  int wx_before = __shfl_up_sync(kFull, wx, 1);
+  if (wl == 31) wn_after = kBig;
+  if (wl == 0) wx_before = -1;
+  smin = min(mn_after, __shfl_sync(kFull, wn_after, warp));
+  pmax = max(mx_before, __shfl_sync(kFull, wx_before, warp));
+  all_or = wo;
+  all_sum = ws;
+}
+
 // position flags
 constexpr int kNew = 1, kPure = 2, kAdd = 4, kPlaced = 8;
 
-__global__ void __launch_bounds__(kThreads)
+template <int kT>
+__global__ void __launch_bounds__(kT)
 poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
                   const int32_t* __restrict__ lens,     // [B, R]
                   const int32_t* __restrict__ offsets,  // [B, R]
@@ -126,9 +157,11 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
                   const int32_t* __restrict__ tlen,
                   const int32_t* __restrict__ best,     // [B]
                   int r, int wf, int n, int tot, int t, int w) {
-  __shared__ int m_rank_s[kMaxW];
-  __shared__ int target_s[kMaxW];
-  __shared__ int red[kWarps];
+  constexpr int kU = 4096 / kT;  // node-loop iterations in flight
+  __shared__ int m_rank_s[kT * kPer];
+  __shared__ int target_s[kT * kPer];
+  __shared__ int red_new[32];
+  __shared__ int red4[4][32];
 
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -149,21 +182,37 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
   const int ng_old = n_groups[lane];
   const int fb = fallback[lane];
   const bool active = t < n_reads[lane] && fb == 0;
+  // the step's own inputs, loaded before the old keys' loop so that their
+  // latency overlaps it: the read's length and offset, the moves, the bases
+  const size_t row = static_cast<size_t>(lane) * r + t;
+  const int len = lens[row];
+  const int off = offsets[row];
+  const int moves = best[lane] > 0 ? tlen[lane] : 0;
+  const int32_t* pk = packed + static_cast<size_t>(lane) * w;
+  const uint8_t* seq_l = seqs + row * wf;
+  const int p0 = tid * kPer;
+  int mv[kPer], seq_c[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int k = tid + q * kT;
+    mv[q] = k < w ? pk[k] : 0;
+    seq_c[q] = p0 + q < w ? seq_l[p0 + q] : 0;
+  }
 
   // keys of the nodes before this step: a group's leader at its position
-  // (four nodes a thread at a time, their loads in flight together)
+  // (kU nodes a thread at a time, their loads in flight together)
   const int nk = min(max(nn_old, 0), n);
-  for (int id0 = tid; id0 < nk; id0 += kUnroll * kThreads) {
-    int gl[kUnroll], gp[kUnroll];
+  for (int id0 = tid; id0 < nk; id0 += kU * kT) {
+    int gl[kU], gp[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int id = id0 + u * kThreads;
+    for (int u = 0; u < kU; ++u) {
+      const int id = id0 + u * kT;
       gl[u] = id < nk ? gl_l[id] : -1;
       gp[u] = id < nk ? gp_l[id] : 0;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int id = id0 + u * kThreads;
+    for (int u = 0; u < kU; ++u) {
+      const int id = id0 + u * kT;
       if (id < nk)
         key_l[id] = gl[u] == id ? static_cast<int>(
                                       static_cast<unsigned>(gp[u]) * kSk +
@@ -173,27 +222,23 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
   }
   if (!active) return;  // uniform: nothing else changes
 
-  const size_t row = static_cast<size_t>(lane) * r + t;
-  const int lim = max(0, min(lens[row], w));  // positions that take a base
-  const int off = offsets[row];
-  const uint8_t* seq_l = seqs + row * wf;
+  const int lim = max(0, min(len, w));  // positions that take a base
 
   // ---- decode: the moves' matched rank at each position ----
-  for (int p = tid; p < w; p += kThreads) m_rank_s[p] = -1;
+  for (int p = tid; p < w; p += kT) m_rank_s[p] = -1;
   __syncthreads();
-  if (best[lane] > 0 && nn_old > 0) {
-    const int cnt = min(tlen[lane], w);
-    const int32_t* pk = packed + static_cast<size_t>(lane) * w;
-    for (int k = tid; k < cnt; k += kThreads) {
-      const int v = pk[k];
-      const int pos = (v & 0xFFFF) - 1;
-      if (pos >= 0 && pos < w) m_rank_s[pos] = (v >> 16) - 1;
+  if (nn_old > 0) {
+    const int cnt = min(moves, w);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int pos = (mv[q] & 0xFFFF) - 1;
+      if (tid + q * kT < cnt && pos >= 0 && pos < w)
+        m_rank_s[pos] = (mv[q] >> 16) - 1;
     }
   }
   __syncthreads();
 
   // ---- gathers: every read of the state before any write ----
-  const int p0 = tid * kPer;
   int base[kPer], lead[kPer], gsz[kPer], target[kPer];
   int flags[kPer];
   int n_local = 0;
@@ -206,7 +251,7 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
     target[q] = -1;
     flags[q] = 0;
     if (p < lim) {
-      const int c = seq_l[p];
+      const int c = seq_c[q];
       const int mr = m_rank_s[p];
       const int m = mr >= 0 ? clampn(perm_l[min(mr, n - 1)], n) : -1;
       const int mc = max(m, 0);
@@ -240,7 +285,7 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
     }
   }
   int n_new;
-  int run = block_scan<false>(n_local, 0, Sum(), red, n_new);
+  int run = excl_sum<kT>(n_local, red_new, n_new);
   const bool overflow = nn_old + n_new > n;
   const bool ok = !overflow;
   int gmark[kPer], npr[kPer];
@@ -299,12 +344,10 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
 
   // ---- the next placed group (suffix minimum) and the last placed
   // position (prefix maximum) of every position ----
-  int unused;
-  int gnext = block_scan<true>(gmin, kBig, Min(), red, unused);
-  int lastp = block_scan<false>(pmax, -1, Max(), red, unused);
-  int flags_all, pure_all;
-  block_scan<false>(bad, 0, Or(), red, flags_all);
-  block_scan<false>(n_pure, 0, Sum(), red, pure_all);
+  // (its barrier also ends every gather: only scatters follow)
+  int gnext, lastp, flags_all, pure_all;
+  scan4<kT>(gmin, pmax, bad, n_pure, red4, gnext, lastp, flags_all,
+            pure_all);
   int key[kPer];
 #pragma unroll
   for (int q = kPer - 1; q >= 0; --q) {
@@ -319,7 +362,6 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
     key[q] = static_cast<int>(static_cast<unsigned>(gf) * kSk +
                               min(max(p - lastp - 1, 0), kHalf - 1));
   }
-  __syncthreads();  // every gather above is done before the first scatter
 
   // ---- scatters ----
   if (ok) {
@@ -372,7 +414,8 @@ poa_thread_kernel(const uint8_t* __restrict__ seqs,     // [B, R, WF]
 // member_idx, grp_size, grp_pos, perm, keys [b, n + 1]; preds [b, n + 1, 16];
 // members [b, n + 1, 8]; path [b, tot + 1]; poa_align's packed [b, w], tlen,
 // best [b].  n <= 16384, w <= min(wf, 4096), 0 <= t < r.  Launches one CTA a
-// lane on ``stream`` and returns cudaGetLastError() (0 on success).
+// lane of w / 4 threads, w rounded up to 1,024, 2,048 or 4,096, on
+// ``stream`` and returns cudaGetLastError() (0 on success).
 extern "C" int poa_thread_launch(
     const void* seqs, const void* lens, const void* offsets,
     const void* n_reads, void* letters, void* npred, void* preds,
@@ -385,7 +428,12 @@ extern "C" int poa_thread_launch(
   if (n < 1 || n > 16384 || w < 1 || w > kMaxW || w > wf || t < 0 ||
       t >= r || tot < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  poa_thread_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // the CTA sized to the step's width: four positions a thread
+  auto* kernel = w <= 1024   ? poa_thread_kernel<256>
+                 : w <= 2048 ? poa_thread_kernel<512>
+                             : poa_thread_kernel<1024>;
+  const int threads = w <= 1024 ? 256 : w <= 2048 ? 512 : 1024;
+  kernel<<<b, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seqs), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(offsets),
       static_cast<const int32_t*>(n_reads), static_cast<int32_t*>(letters),

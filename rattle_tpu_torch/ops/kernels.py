@@ -738,7 +738,13 @@ def poa_rerank(st: dict) -> None:
     above), perm inverts node_rank, and pred_rows / npred_r / letters_r
     [B, N(, 16)] (``poa_rank_space``) are written for the ranks below
     n_nodes, the rows poa_align reads.  ``st`` as ``poa_thread`` takes it,
-    plus those three buffers."""
+    plus those three buffers.
+
+    On the card the kernel orders a lane's leaders by counting when its
+    keys have the structure poa_thread gives them, and sorts them
+    otherwise; ``poa_rerank.sort_lanes[device]`` (an int32 [1] tensor on
+    that card, made at the first launch there) counts the lanes sorted.
+    Nothing on the engine's path reads it."""
     b, n = _check_step_state("poa_rerank", st, rank_space=True)
     dev = st["letters"].device
     if not _on_card(st["keys"]):
@@ -746,16 +752,22 @@ def poa_rerank(st: dict) -> None:
     if b == 0:
         return None
     fn = _ext.load("poa_rerank").poa_rerank_launch
+    counter = poa_rerank.sort_lanes.get(dev)
+    if counter is None:
+        counter = poa_rerank.sort_lanes[dev] = torch.zeros(
+            1, dtype=torch.int32, device=dev)
     ptr = [st[f].data_ptr() for f in (
         "keys", "grp_size", "grp_leader", "member_idx", "preds", "npred",
         "letters", "n_nodes", "n_groups", "grp_pos", "perm", "node_rank",
         *POA_RANK_FIELDS)]
-    _raise_on(fn(*ptr, b, n, _stream(dev)), "poa_rerank")
+    _raise_on(fn(*ptr, counter.data_ptr(), b, n, _stream(dev)),
+              "poa_rerank")
     poa_rerank.launches += 1
     return None
 
 
 poa_rerank.launches = 0
+poa_rerank.sort_lanes = {}
 
 # --------------------------------------------------------------------------
 # cluster's score path: join, decision, block replay

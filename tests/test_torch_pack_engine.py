@@ -4,7 +4,9 @@ tests/test_pack_engine.py.  MSA rows and statistics are compared exactly, and
 so is the read step (poa_align -> poa_thread -> poa_rerank on their plain
 versions) against the JAX engine's jitted ``_step``: every state field after
 one step from an injected JAX state, and after each of 18 consecutive steps
-of a group with idle lanes and one lane for each fallback cause.
+of a group with idle lanes and one lane for each fallback cause.  The keys
+of those steps, and hand-made and random keys, hold the premise of
+poa_rerank's order by counting against a stable torch.sort.
 """
 
 import random
@@ -360,6 +362,143 @@ def test_idle_lanes_stay_put(consecutive, lane):
         for f in ("n_nodes", "n_groups", "node_rank", "perm", "grp_pos",
                   "letters", "preds") + pe.RANK_FIELDS:
             assert np.array_equal(got[f][li], ref[f][li]), f
+
+
+# --------------------------------------------------------------------------
+# the premise of poa_rerank's order by counting (csrc/poa_rerank.cu): the
+# keys poa_thread writes are a merge of two sorted runs, so a count gives
+# their stable order; a numpy copy of the kernel's check and count
+# --------------------------------------------------------------------------
+
+SK, HALF, BIG = kernels.POA_SK, kernels.POA_HALF, kernels.POA_BIG
+
+
+def _classes(keys, nn):
+    """ids below nn of class A (an old leader, x * SK + HALF) and C (a new
+    group's leader, g * SK + r, r < HALF), and every key below nn."""
+    k = np.asarray(keys[:nn], np.int64)
+    lead = (k >= 0) & (k < BIG)
+    is_a = lead & (k % SK == HALF)
+    return np.flatnonzero(is_a), np.flatnonzero(lead & ~is_a), k
+
+
+def _structure_faults(keys, nn, g):
+    """The conditions of the kernel's check that one lane's keys fail."""
+    ids_a, ids_c, k = _classes(keys, nn)
+    x = k[ids_a] // SK
+    faults = set()
+    if (k < 0).any():
+        faults.add("negative")
+    if len(ids_a) + len(ids_c) != g:
+        faults.add("count")
+    if len(np.unique(x)) < len(x):
+        faults.add("repeat_x")
+    if len(x) and x.max() >= len(x):
+        faults.add("x_range")
+    if (np.diff(k[ids_c]) < 0).any():
+        faults.add("decreasing_c")
+    return faults
+
+
+def _counting_order(keys, nn, g):
+    """The first g ids of the stable order of a lane's keys by counting:
+    the k-th C in id order at k + min(g_k, |A|), the A at x at x + #{C :
+    min(g_k, |A|) <= x}."""
+    ids_a, ids_c, k = _classes(keys, nn)
+    n_a = len(ids_a)
+    x = k[ids_a] // SK
+    gc = np.minimum(k[ids_c] // SK, n_a)
+    at_or_before = np.cumsum(np.bincount(gc[gc < n_a], minlength=n_a))
+    order = np.full(g, -1, np.int64)
+    order[np.arange(len(ids_c)) + gc] = ids_c
+    order[x + at_or_before[x]] = ids_a
+    return order
+
+
+def _sorted_order(keys, n, g):
+    return torch.sort(torch.from_numpy(np.ascontiguousarray(keys[:n])),
+                      stable=True).indices[:g].numpy()
+
+
+@pytest.mark.parametrize("lane", ["normal0", "normal1", "normal2",
+                                  "idle_after_2", "empty", "node_cap",
+                                  "pred_cap", "group_cap"])
+def test_rerank_keys_are_two_sorted_runs(consecutive, lane):
+    """After every step of the group, each lane's keys pass the kernel's
+    check (ids from n_nodes on key BIG), and the order by counting is
+    torch.sort's stable order, the one grp_pos holds."""
+    li = consecutive["lanes"].index(lane)
+    for t, (_want, got) in enumerate(consecutive["steps"]):
+        keys = got["keys"][li]
+        n = got["node_rank"].shape[1]
+        nn, g = int(got["n_nodes"][li]), int(got["n_groups"][li])
+        assert not _structure_faults(keys, nn, g), f"step {t}"
+        assert (keys[nn:n] == BIG).all(), f"step {t}"
+        order = _counting_order(keys, nn, g)
+        assert np.array_equal(order, _sorted_order(keys, n, g)), f"step {t}"
+        assert np.array_equal(got["grp_pos"][li][order], np.arange(g))
+
+
+def _hand_keys():
+    """One lane's keys with the structure: 12 ids, old leaders at
+    positions 3, 0, 2, 1, new groups before positions 0, 2, 2 (the last
+    two one run) and 4, the rest BIG; G = 8."""
+    keys = np.full(12, BIG, np.int32)
+    for i, x in zip((0, 2, 5, 9), (3, 0, 2, 1)):
+        keys[i] = x * SK + HALF
+    for i, (g, r) in zip((3, 4, 6, 10), ((0, 0), (2, 0), (2, 1), (4, 0))):
+        keys[i] = g * SK + r
+    return keys, 12, 8
+
+
+def test_rerank_counting_order_on_hand_made_keys():
+    keys, nn, g = _hand_keys()
+    assert not _structure_faults(keys, nn, g)
+    order = _counting_order(keys, nn, g)
+    assert order.tolist() == [3, 2, 9, 4, 6, 5, 0, 10]
+    assert np.array_equal(order, _sorted_order(keys, nn, g))
+
+
+@pytest.mark.parametrize("fault", ["repeat_x", "decreasing_c", "count",
+                                   "negative", "x_range"])
+def test_rerank_check_flags_broken_keys(fault):
+    """Keys that break one condition of the check are flagged by it alone
+    (the kernel sorts such a lane)."""
+    keys, nn, g = _hand_keys()
+    if fault == "repeat_x":           # positions 3, 0, 0, 1
+        keys[5] = keys[2]
+    elif fault == "decreasing_c":     # the run's keys in reverse id order
+        keys[4], keys[6] = keys[6], keys[4]
+    elif fault == "count":            # one group more than the leaders
+        g += 1
+    elif fault == "negative":         # a node that leads nothing
+        keys[1] = -1
+    elif fault == "x_range":          # positions 3, 0, 5, 1
+        keys[5] = 5 * SK + HALF
+    assert _structure_faults(keys, nn, g) == {fault}
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rerank_counting_order_equals_stable_sort(seed):
+    """Random keys with the structure, C runs long enough to tie at the
+    clipped run index: the order by counting is the stable sort's."""
+    rng = np.random.default_rng(seed)
+    n_a, n_c, n_other = rng.integers(0, 300, size=3)
+    nn = int(n_a + n_c + n_other)
+    ids = rng.permutation(nn)
+    ids_a, ids_c = ids[:n_a], np.sort(ids[n_a:n_a + n_c])
+    keys = np.full(nn + 5, BIG, np.int32)
+    keys[ids_a] = rng.permutation(n_a) * SK + HALF
+    gs = np.sort(rng.integers(0, n_a + 1, size=n_c))
+    runs = np.minimum(rng.integers(0, 2 * HALF, size=n_c), HALF - 1)
+    for k in range(1, n_c):             # run indices climb within a g
+        if gs[k] == gs[k - 1]:
+            runs[k] = min(max(runs[k], runs[k - 1]), HALF - 1)
+    keys[ids_c] = gs * SK + runs
+    g = int(n_a + n_c)
+    assert not _structure_faults(keys, nn, g)
+    assert np.array_equal(_counting_order(keys, nn, g),
+                          _sorted_order(keys, nn + 5, g))
 
 
 def _small_state():
