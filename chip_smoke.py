@@ -5,9 +5,10 @@ Run from the repository root on a machine with a card:
     python3 chip_smoke.py
 
 Phases, each ending in one summary line:
-  1. device and build: the card's name and power limit; the eight CUDA
+  1. device and build: the card's name and power limit; the nine CUDA
      kernels and the tensor-core rate probe (csrc/mma_rate.cu) compiled with
-     nvcc from rattle_tpu_torch/csrc (all at once);
+     nvcc from rattle_tpu_torch/csrc (all at once), and the host aligner's
+     library built from native/rattle_native.cpp into build/;
   2. bv_common against its plain version, exactly, at the main path's
      shapes and at ragged sizes off the 128 x 128 block tile, with
      CUDA-event times, the bf16 matmul yardstick and the share of the bound,
@@ -84,6 +85,21 @@ Phases, each ending in one summary line:
      summed over the steps beside the sum of each step's bound; the run
      again under torch.profiler for its CUDA launch calls, then ``polish
      --rna --summary`` on its consensi.fq;
+  6c. the lockstep runner: ``correct`` with RATTLE_POA_BACKEND=lockstep on
+     a seed-fixed cut of phase 6's clusters (every l_cap class and the
+     largest pack kept; graphs on the host, one poa_align_batch launch a
+     read step), its three files byte for byte the pack engine's on the
+     same cut, with its read steps, aligning and host seconds and packs on
+     the card and on the host; poa_align_batch against its plain version,
+     exactly (moves, length, aligned), on the run's largest read step at
+     each of W = 1024, 2048 (int16 cells) and 4096 (int32) with an
+     empty-graph lane, an unrelated read, a read past the end of its graph
+     and an idle lane (pipeline/profile_lockstep.py's helpers), timed as
+     lone calls beside the plain version and its bound (the larger of 32
+     int32 operations a DP cell and the bytes of its inputs and moves);
+     then ``correct`` on cuda with RATTLE_POA_BACKEND=lockstep and =native
+     on phase 7's rna parity reads, held to ``--poa-backend host`` with
+     phase 7's runs;
   7. parity on 256 reads of the same generator: ``cluster`` (rna, cDNA) and
      ``cluster --iso`` must write the same clusters.out as ``--oracle``, and
      so must ``cluster --rna`` with every borderline pair, then every pair
@@ -112,8 +128,9 @@ Phases, each ending in one summary line:
 
 Launch counts are set to 0 just before each CLI run and read just after it
 (in each rank for phase 8); the kernels line reports the five cluster
-kernels from the ``--rna`` ``cluster`` run and poa_align, poa_thread and
-poa_rerank from the ``correct`` run.  With ``--kernels-only`` the script
+kernels from the ``--rna`` ``cluster`` run, poa_align, poa_thread and
+poa_rerank from the ``correct`` run and poa_align_batch from the lockstep
+``correct`` run.  With ``--kernels-only`` the script
 stops after phase 4b (a quick build-and-compare of the kernels) and prints
 no final ``ok`` line.  Every process the script starts is stopped by its
 end.
@@ -204,8 +221,15 @@ def phase_device():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  build {name}: {secs:.2f} s; {' | '.join(regs)}")
-    print(f"phase 1 device+build: {smi[0]}; kernels built in {build_s:.2f} s "
-          f"(compiled now: {sorted(report)})")
+    # the host aligner's library, built from native/rattle_native.cpp
+    from rattle_tpu_torch import native
+    t0 = time.perf_counter()
+    check(native.available(), "the native library did not build")
+    native_s = time.perf_counter() - t0
+    print(f"  build native: {native_s:.2f} s; loaded {native.SO}")
+    print(f"phase 1 device+build: {smi[0]}; {len(_ext.KERNELS)} kernels "
+          f"built in {build_s:.2f} s (compiled now: {sorted(report)}), the "
+          f"native library in {native_s:.2f} s")
     return smi[0], build_s
 
 
@@ -1533,6 +1557,209 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 6c: the lockstep runner (RATTLE_POA_BACKEND=lockstep) and its kernel
+# --------------------------------------------------------------------------
+
+CORRECT_FILES = ("corrected.fq", "uncorrected.fq", "consensi.fq")
+# phase 6c's lockstep run takes a seed-fixed share of the main path's
+# clusters (the whole run, ~170 s on an H100, would take the script past
+# 1.5x its earlier time), with every l_cap class and the largest pack
+LOCKSTEP_SHARE = 0.35
+LOCKSTEP_SEED = 12
+
+
+def _lockstep_subset(fq: str, clusters_out: str):
+    """clusters.out of a seed-fixed LOCKSTEP_SHARE of the clusters, plus the
+    cluster of the largest pack and one cluster of each l_cap class
+    (round_pow2(longest read + 1, 128)) that some pack of the whole set
+    has; returns (path, record)."""
+    from rattle_tpu_torch.correct.runner import _round_pow2
+    from rattle_tpu_torch.io import fastx, hpsio
+    clusters = hpsio.read_clusters(clusters_out)
+    reads = fastx.read_multiple_inputs([fq], [])
+    info = []
+    for c in clusters:
+        # the packs correct forms (build_packs: split 200, min_reads 5)
+        n_files = (len(c.seqs) - 1) // 200 + 1
+        packs = [c.seqs[nf::n_files] for nf in range(n_files)]
+        packs = [pk for pk in packs if len(pk) > 5]
+        caps = {_round_pow2(max(len(reads[x.seq_id].seq) for x in pk) + 1,
+                            128) for pk in packs}
+        info.append((caps, max((len(pk) for pk in packs), default=0)))
+    rng = np.random.default_rng(LOCKSTEP_SEED)
+    keep = set(np.flatnonzero(rng.random(len(clusters))
+                              < LOCKSTEP_SHARE).tolist())
+    largest = max(range(len(clusters)), key=lambda i: info[i][1])
+    keep.add(largest)
+    every = sorted(set().union(*(caps for caps, _ in info)))
+    for cap in every:
+        if not any(cap in info[i][0] for i in keep):
+            keep.add(next(i for i, (caps, _) in enumerate(info)
+                          if cap in caps))
+    sub = [clusters[i] for i in sorted(keep)]
+    path = os.path.join(WORK, "lockstep_subset", "clusters.out")
+    os.makedirs(os.path.dirname(path))
+    hpsio.write_clusters(sub, path)
+    return path, dict(clusters=len(sub), of=len(clusters),
+                      reads=sum(len(c.seqs) for c in sub),
+                      l_caps=every, largest_pack=info[largest][1])
+
+
+def _lockstep_correct(label: str, fq: str, clusters_out: str,
+                      capture: bool = False):
+    """``correct`` on cuda with RATTLE_POA_BACKEND=lockstep: (output
+    directory, the run's record, the captured steps or None)."""
+    from rattle_tpu_torch.pipeline import profile_lockstep
+    out = os.path.join(WORK, f"{label}_lockstep")
+    os.makedirs(out)
+    with profile_lockstep.backend("lockstep"), \
+            profile_lockstep.capture() as (made, steps):
+        wall, launches, st = _poa_run(["correct", "-i", fq, "-c",
+                                       clusters_out, "-o", out])
+    check(len(made) == 1, f"{label}: {len(made)} lockstep runners")
+    ls = dict(made[0].stats)
+    check(not any(launches[k] for k in ("poa_align", "poa_thread",
+                                        "poa_rerank")),
+          f"{label} lockstep: the pack engine ran: {launches}")
+    check(ls["device_packs"] > 0,
+          f"{label} lockstep: no pack on the card: {ls}")
+    check(launches["poa_align_batch"] == ls["steps"] == st["steps"] > 0,
+          f"{label} lockstep: not one launch a read step: {launches} {ls}")
+    run = dict(correct_s=wall, launches=launches, stats=ls)
+    return out, run, (steps if capture else None)
+
+
+def _batch_bound(args, moves: int):
+    """The least time poa_align_batch could take on these inputs, reckoned
+    as poa_align's: the larger of POA_OPS_PER_CELL int32 operations a DP
+    cell (n_nodes x (seq_len + 1) a lane) at PEAK_INT32 and the bytes the
+    function must move at PEAK_BYTES, each lane's live inputs read once (a
+    letter and its predecessor slots a rank, the read, n_nodes and
+    seq_len) and its outputs written once (the ``moves`` packed moves
+    emitted, length and aligned): (bound ms, bound_by)."""
+    letters, preds, n_nodes, seq, seq_len = args
+    nn = n_nodes.to(torch.int64)
+    sl = seq_len.to(torch.int64)
+    rank_bytes = letters.element_size() \
+        + preds.shape[2] * preds.element_size()
+    nbytes = (int((nn * rank_bytes + sl).sum())
+              + letters.shape[0] * (n_nodes.element_size()
+                                    + seq_len.element_size() + 4 + 1)
+              + 4 * moves)
+    ops = int((nn * (sl + 1)).sum()) * POA_OPS_PER_CELL
+    t_ops, t_bytes = ops / PEAK_INT32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _native_correct(label: str, fq: str, clusters_out: str):
+    """Start ``correct`` on cuda (the CLI's default, as a user runs it)
+    with RATTLE_POA_BACKEND=native (every pack on the host aligner: the
+    runner on the card, no kernel launched) in a process of its own beside
+    the card's phases; returns (process, output directory, start time)."""
+    out = os.path.join(WORK, f"{label}_native")
+    os.makedirs(out)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rattle_tpu_torch.pipeline.cli", "correct",
+         "-i", fq, "-c", clusters_out, "-o", out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                           RATTLE_POA_BACKEND="native"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, out, time.perf_counter()
+
+
+def _lockstep_kernel_rows(dev, steps) -> dict:
+    """poa_align_batch against its plain version, exactly, on the captured
+    step of each width with the added lanes (profile_lockstep.kernel_row:
+    predecessors as the runner gives them, int16, and as int32; the empty
+    and idle lanes emit nothing), timed as lone calls beside the plain
+    version and the bound."""
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.pipeline.profile_lockstep import (WIDTHS,
+                                                            extra_lanes,
+                                                            kernel_row)
+    check(set(WIDTHS) <= set(steps),
+          f"lockstep: no step captured at some width: {sorted(steps)}")
+    rows = {}
+    for w in WIDTHS:
+        args, extra = extra_lanes(steps[w][1], dev, seed=w)
+        row = kernel_row(args, extra)
+        bound_ms, bound_by = _batch_bound(args, sum(row["moves"]))
+        row.update(bound_ms=bound_ms, bound_by=bound_by,
+                   share=bound_ms / row["ms"], library_ms=None)
+        rows[w] = row
+        b, n, _ = row["shape"]
+        print(f"  poa_align_batch W={w} N={n} lanes={b} "
+              f"({'int16' if w <= kernels.POA_SMALL_L else 'int32'} cells): "
+              f"ranks {row['ranks']}, read lengths {row['read_len']}, moves "
+              f"{row['moves']}; kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.1f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}, {row['cells']} cells, "
+              f"{100 * bound_ms / row['ms']:.2f}%)")
+    return rows
+
+
+def phase_lockstep(fq: str, clusters_out: str, engine_s: float,
+                   parity_fq: str, parity_clusters: str):
+    """Phase 6c: ``correct`` with RATTLE_POA_BACKEND=lockstep on a
+    seed-fixed subset of phase 6's clusters (``_lockstep_subset``), byte for
+    byte the pack engine's on the same subset; poa_align_batch held to its
+    plain version on the run's largest step at each width; lockstep, and
+    native in a process of its own, on phase 7's rna parity reads (held to
+    the host path with phase 7's runs).  Returns (record, {label: {backend:
+    output directory, or (process, directory, start) while it runs}})."""
+    dev = torch.device("cuda")
+    sub, cut = _lockstep_subset(fq, clusters_out)
+    native = _native_correct("parity_correct_rna", parity_fq,
+                             parity_clusters)
+    eng_out = os.path.join(WORK, "lockstep_subset", "engine")
+    os.makedirs(eng_out)
+    wall_e, _launches, st_e = _poa_run(["correct", "-i", fq, "-c", sub, "-o",
+                                        eng_out])
+    torch.cuda.reset_peak_memory_stats()
+    out, run, steps = _lockstep_correct("lockstep_subset/correct", fq, sub,
+                                        capture=True)
+    run["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _same_files(out, eng_out, CORRECT_FILES,
+                "correct lockstep vs the pack engine")
+    run.update(subset=cut, engine_s=wall_e, engine_stats=st_e,
+               engine_full_s=engine_s)
+    ls = run["stats"]
+    n = max(ls["steps"], 1)
+    print(f"  lockstep subset: {cut['clusters']} of {cut['of']} clusters "
+          f"(seed {LOCKSTEP_SEED}, share {LOCKSTEP_SHARE}), {cut['reads']} "
+          f"reads, l_cap classes {cut['l_caps']}, largest pack "
+          f"{cut['largest_pack']} reads")
+    print(f"  correct lockstep: {run['correct_s']:.2f} s (align "
+          f"{ls['t_align_s']:.2f} s in {ls['steps']} read steps, "
+          f"{1e3 * ls['t_align_s'] / n:.2f} ms a step; host "
+          f"{ls['t_host_s']:.2f} s, {1e3 * ls['t_host_s'] / n:.2f} ms a "
+          f"step; host aligner {ls['t_fallback_s']:.2f} s); device "
+          f"{ls['device_packs']} packs / {ls['device_bases']} bases, host "
+          f"{ls['fallback_packs']} packs / {ls['host_bases']} bases; peak "
+          f"{run['peak_mem_gib']:.2f} GiB; byte-identical to the pack "
+          f"engine on the subset ({wall_e:.2f} s, {_fmt_stats(st_e)}; "
+          f"phase 6, every cluster: {engine_s:.2f} s)")
+    run["kernel_rows"] = _lockstep_kernel_rows(dev, steps)
+    p_out, p_run, _ = _lockstep_correct("parity_correct_rna", parity_fq,
+                                        parity_clusters)
+    run["parity_lockstep"] = p_run
+    print(f"  parity correct rna lockstep: {p_run['correct_s']:.2f} s, "
+          f"{p_run['stats']}")
+    print(f"phase 6c lockstep: correct with RATTLE_POA_BACKEND=lockstep on "
+          f"{cut['clusters']} of phase 6's {cut['of']} clusters "
+          f"({run['correct_s']:.1f} s, {ls['steps']} poa_align_batch "
+          "launches) byte-identical to the pack engine's; poa_align_batch "
+          "exact against its plain version at W = 1024, 2048, 4096 on the "
+          "run's largest steps with empty, unrelated, past-the-graph and "
+          "idle lanes; "
+          "lockstep and native on the rna parity reads (held to the host "
+          "path with phase 7)")
+    return run, {"rna": {"lockstep": p_out, "native": native}}
+
+
 def _same_files(a: str, b: str, names, what: str) -> None:
     for name in names:
         with open(os.path.join(a, name), "rb") as fa, \
@@ -1573,17 +1800,27 @@ def _device_correct(label: str, fq: str, clusters_out: str):
     return out, dict(correct_s=wall, launches=launches, stats=st)
 
 
-def _finish_parity(pending: dict) -> dict:
+def _finish_parity(pending: dict, extra: dict) -> dict:
     """Wait for the host ``correct`` runs of phase 7 and hold each device
-    run's three files to them byte for byte."""
+    run's three files to them byte for byte, and phase 6c's runs in
+    ``extra`` ({label: {backend: directory, or (process, directory,
+    start)}}) too."""
     res = {}
     for label, (proc, host_out, t0, cuda_out, run) in pending.items():
         _, err = proc.communicate(timeout=HOST_CORRECT_S)
         check(proc.returncode == 0, f"parity correct {label}: the host run "
               f"exited {proc.returncode}: {err[-2000:]}")
-        _same_files(cuda_out, host_out,
-                    ("corrected.fq", "uncorrected.fq", "consensi.fq"),
-                    f"correct {label}")
+        _same_files(cuda_out, host_out, CORRECT_FILES, f"correct {label}")
+        for backend, out in extra.get(label, {}).items():
+            if isinstance(out, tuple):
+                bproc, out, bt0 = out
+                _, berr = bproc.communicate(timeout=HOST_CORRECT_S)
+                check(bproc.returncode == 0 and f"POA packs ({backend}):"
+                      in berr, f"parity correct {label} {backend}: exited "
+                      f"{bproc.returncode}: {berr[-2000:]}")
+                run[f"correct_{backend}_s"] = time.perf_counter() - bt0
+            _same_files(out, host_out, CORRECT_FILES,
+                        f"correct {label} {backend}")
         run["correct_host_s"] = time.perf_counter() - t0
         res[label] = run
         print(f"  parity correct {label}: byte-identical to the host path "
@@ -1591,7 +1828,8 @@ def _finish_parity(pending: dict) -> dict:
               f"host oracle done {run['correct_host_s']:.1f} s after its "
               "start, beside the other phases)")
     print(f"phase 7 correct parity: correct on the {', '.join(res)} parity "
-          "clusters matches --poa-backend host byte for byte")
+          "clusters matches --poa-backend host byte for byte, and so do "
+          f"the lockstep and native runs on {', '.join(extra)}")
     return res
 
 
@@ -1816,6 +2054,10 @@ def phase_ranks(main_res):
     from rattle_tpu_torch.parallel import launch
     from rattle_tpu_torch.utils.synth import MAIN_READS
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  before the ranks: {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"of device memory free, {torch.cuda.memory_reserved() / 2**30:.2f}"
+          " GiB reserved by this process")
     spec, outs = [], {}
     for label, argv, fq, _ref, consts in RANK_RUNS:
         outs[label] = [os.path.join(WORK, f"ranks_{label}_r{r}")
@@ -1933,11 +2175,17 @@ def run() -> int:
     main_res, fq, clusters_out = phase_main_path()
     correct_res = phase_correct(fq, clusters_out, main_res["rna"]["reads"])
     parity, pending = phase_parity()
+    lockstep_res, lockstep_outs = phase_lockstep(
+        fq, clusters_out, correct_res["correct_s"],
+        os.path.join(WORK, "parity_rna.fq"),
+        os.path.join(WORK, "parity_rna_cuda", "clusters.out"))
     ranks = phase_ranks(main_res)
-    parity["correct"] = _finish_parity(pending)
+    parity["correct"] = _finish_parity(pending, lockstep_outs)
     step_launches = {k: correct_res["launches"][k]
                      for k in ("poa_align", "poa_thread", "poa_rerank")}
-    launches = dict(main_res["rna"]["launches"], **step_launches)
+    launches = dict(main_res["rna"]["launches"], **step_launches,
+                    poa_align_batch=lockstep_res["launches"][
+                        "poa_align_batch"])
 
     def record(name, row, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
@@ -1978,13 +2226,18 @@ def run() -> int:
         record("poa_rerank", step_rows[4096][1],
                "rattle_tpu_torch/csrc/poa_rerank.cu",
                "rattle_tpu/correct/pack_engine.py:266"),
+        # the lockstep runner's alignment (JAX's jitted poa_align_batch),
+        # the lockstep correct run's largest int32 step
+        record("poa_align_batch", lockstep_res["kernel_rows"][4096],
+               "rattle_tpu_torch/csrc/poa_align_batch.cu",
+               "rattle_tpu/ops/poa_device.py:49"),
     ]}
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
                   lis_filter=lis_rows, score_path=score_rows,
                   poa_align=poa_rows,
                   step_kernels={str(w): r for w, r in step_rows.items()},
                   main_path=main_res, correct_path=correct_res,
-                  parity=parity, ranks=ranks,
+                  lockstep=lockstep_res, parity=parity, ranks=ranks,
                   total_s=time.perf_counter() - t_start, **kernels_line)
     with open(os.path.join(WORK, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1)

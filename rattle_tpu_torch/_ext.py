@@ -24,7 +24,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rattle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("bv_common", "lis_filter", "poa_align", "join_expand",
-           "score_decide", "greedy_owner", "poa_thread", "poa_rerank")
+           "score_decide", "greedy_owner", "poa_thread", "poa_rerank",
+           "poa_align_batch")
 # csrc/mma_rate.cu, a probe of the tensor cores' rate that chip_smoke.py
 # builds beside the kernels (no path launches it)
 PROBES = ("mma_rate",)
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "greedy_owner": ("greedy_owner_launch", [_P, _I, _I, _P, _P]),
     "poa_thread": ("poa_thread_launch", [_P] * 21 + [_I] * 7 + [_P]),
     "poa_rerank": ("poa_rerank_launch", [_P] * 16 + [_I] * 2 + [_P]),
+    "poa_align_batch": ("poa_align_batch_launch",
+                        [_P, _P, _I, _I, _P, _P, _P] + [_I] * 8 + [_P] * 5),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 

@@ -1,46 +1,84 @@
-# Copied from rattle_tpu/native.py.
+# Copied from rattle_tpu/native.py; the port builds its own library.
 """ctypes bindings for the native host runtime (native/rattle_native.cpp).
 
 Everything here has a pure-Python/NumPy twin (ops/sketch.py, ops/poa.py); the
 native path is a drop-in accelerator with identical semantics, verified by
-tests/test_native.py.  If the shared library is missing it is built on first
-use (make in native/); on failure callers fall back to the Python twins.
+tests/test_torch_native.py.  The port compiles ``native/rattle_native.cpp``
+(read in place) with ``native/Makefile``'s flags into
+``build/rattle_tpu_torch/librattle_native.so`` at first use and loads only
+that library, never the ``native/librattle_native.so`` beside the source
+(which may be older than it).  It rebuilds when the source is newer than the
+library or its hash differs from the one recorded beside the library, under
+a file lock, so that concurrent processes build once.  Without a compiler
+callers fall back to the Python twins.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 from typing import List, Optional
 
 import numpy as np
 
-_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "native")
-_SO = os.path.join(_DIR, "librattle_native.so")
+from ._ext import BUILD_DIR
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "native", "rattle_native.cpp")
+SO = os.path.join(BUILD_DIR, "librattle_native.so")
+# native/Makefile's flags, warnings aside
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 _lib = None
+
+
+def _source_hash() -> str:
+    with open(_SRC, "rb") as fh:
+        return hashlib.sha256(fh.read() + " ".join(CXXFLAGS).encode()
+                              ).hexdigest()
+
+
+def _stale(digest: str) -> bool:
+    try:
+        with open(SO + ".sha256") as fh:
+            recorded = fh.read().strip()
+        return (recorded != digest
+                or os.path.getmtime(_SRC) > os.path.getmtime(SO))
+    except OSError:
+        return True
+
+
+def _build() -> None:
+    """Compile the library into BUILD_DIR unless it is current; the build
+    goes to a temporary name renamed into place, under a file lock."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    digest = _source_hash()
+    with open(SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(digest):
+            return
+        tmp = f"{SO}.{os.getpid()}.tmp"
+        subprocess.run([os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", tmp,
+                        _SRC], check=True, capture_output=True)
+        os.replace(tmp, SO)
+        with open(f"{SO}.sha256.{os.getpid()}.tmp", "w") as fh:
+            fh.write(digest + "\n")
+        os.replace(f"{SO}.sha256.{os.getpid()}.tmp", SO + ".sha256")
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True)
-        except Exception:
-            return None
     try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+        _build()
+        lib = ctypes.CDLL(SO)
+    except (OSError, subprocess.CalledProcessError):
         return None
 
-    i64, i32p, u32p, u8p, charp = (ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-                                   ctypes.POINTER(ctypes.c_uint32),
-                                   ctypes.POINTER(ctypes.c_uint8),
-                                   ctypes.c_char_p)
+    i64 = ctypes.c_int64
     lib.rn_build_sketch.restype = None
     lib.rn_poa_new.restype = ctypes.c_void_p
     lib.rn_poa_free.argtypes = [ctypes.c_void_p]

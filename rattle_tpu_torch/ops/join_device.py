@@ -1,6 +1,6 @@
 """Common-k-mer join on the device (kmer.cpp:45-67); port of
 rattle_tpu/ops/join_device.py (``merge_join_expand`` for k <= 15 and
-``sorted_join_expand`` for k = 16).
+``sorted_join_expand`` for k = 16, and ``join_counts``).
 
 The JAX joins avoid gathers because TPUs have none (a bitonic merge plus
 sort-based slot expansion).  A GPU gathers at rate, so this is a batched
@@ -26,6 +26,27 @@ _A_PAD = 1 << 32        # above every real hash: a-side pads sort last
 _B_PAD = (1 << 32) + 1  # matches no a-side entry, pad or real
 
 
+def match_runs(hs_a: torch.Tensor, nk_a: torch.Tensor, hs_b: torch.Tensor,
+               nk_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For every b-side entry below nk_b (in any order), the start of its
+    run of equal hashes in the first nk_a entries of the sorted a-side
+    table and the run's length (0 from nk_b on)."""
+    dev = hs_a.device
+    va = torch.arange(hs_a.shape[1], device=dev)[None, :] < nk_a[:, None]
+    vb = torch.arange(hs_b.shape[1], device=dev)[None, :] < nk_b[:, None]
+    ha = torch.where(va, hs_a, _A_PAD).contiguous()
+    hb = torch.where(vb, hs_b, _B_PAD).contiguous()
+    lo = torch.searchsorted(ha, hb, side="left")
+    return lo, torch.searchsorted(ha, hb, side="right") - lo
+
+
+def join_counts(hs_a: torch.Tensor, nk_a: torch.Tensor, hs_b: torch.Tensor,
+                nk_b: torch.Tensor) -> torch.Tensor:
+    """Total match count per pair, without expansion: [B] int32, for tables
+    as ``join_expand`` takes them."""
+    return match_runs(hs_a, nk_a, hs_b, nk_b)[1].sum(dim=1).to(torch.int32)
+
+
 def join_expand(hs_a: torch.Tensor, ps_a: torch.Tensor, nk_a: torch.Tensor,
                 hs_b: torch.Tensor, ps_b: torch.Tensor, nk_b: torch.Tensor,
                 m_cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -36,12 +57,7 @@ def join_expand(hs_a: torch.Tensor, ps_a: torch.Tensor, nk_a: torch.Tensor,
     b, wa = hs_a.shape
     wb = hs_b.shape[1]
     dev = hs_a.device
-    va = torch.arange(wa, device=dev)[None, :] < nk_a[:, None]
-    vb = torch.arange(wb, device=dev)[None, :] < nk_b[:, None]
-    ha = torch.where(va, hs_a, _A_PAD).contiguous()
-    hb = torch.where(vb, hs_b, _B_PAD).contiguous()
-    lo = torch.searchsorted(ha, hb, side="left")
-    cnt = torch.searchsorted(ha, hb, side="right") - lo   # 0 for b pads
+    lo, cnt = match_runs(hs_a, nk_a, hs_b, nk_b)
     offs = torch.cumsum(cnt, dim=1)                        # inclusive
     total = offs[:, -1]
 

@@ -434,6 +434,234 @@ def poa_align(pred_rows: torch.Tensor, npred: torch.Tensor,
 poa_align.launches = 0
 
 # --------------------------------------------------------------------------
+# the lockstep runner's alignment: every move emitted, H/E/F stored
+# --------------------------------------------------------------------------
+
+POA_CLAMP16 = -16384
+# longest read for which int16 cell storage is exact (ops/poa_device.py)
+POA_SMALL_L = 3200
+# a thread takes 4 columns and a CTA at most 1,024 threads
+POA_BATCH_MAX_L = 4096
+# the packed traceback keeps rank + 1 in 16 bits
+POA_BATCH_MAX_N = 32767
+POA_BATCH_MAX_P = 8
+
+
+def poa_batch_scratch_bytes(b: int, n: int, l: int) -> int:
+    """Bytes of DP scratch ``poa_align_batch`` needs on the card: the H, E
+    and F cells of [b, n + 1, l + 1], int16 for l <= POA_SMALL_L and int32
+    above."""
+    return 3 * b * (n + 1) * (l + 1) * (2 if l <= POA_SMALL_L else 4)
+
+
+def poa_align_batch_plain(letters: torch.Tensor, preds: torch.Tensor,
+                          n_nodes: torch.Tensor, seq: torch.Tensor,
+                          seq_len: torch.Tensor, match: int = 5,
+                          mismatch: int = -4, go: int = -8, ge: int = -6
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain version: rattle_tpu/ops/poa_device.py::poa_align_batch line
+    for line, the rank scan a loop over [B, L + 1] rows (cummax for E) and
+    the traceback a batched state machine.  Rows past the largest n_nodes
+    are not built: there they are NEG, and no output reads them."""
+    dev = letters.device
+    i32 = torch.int32
+    b, n = letters.shape
+    l = seq.shape[1]
+    preds = preds.to(i32)
+    small = l <= POA_SMALL_L
+    cell = torch.int16 if small else i32
+    neg_store = POA_CLAMP16 if small else POA_NEG
+
+    def store(x):
+        return x.clamp(min=POA_CLAMP16).to(cell) if small else x
+
+    rows = min(max(int(n_nodes.max()), 0), n) if b else 0
+    h_all = torch.zeros((b, rows + 1, l + 1), dtype=cell, device=dev)
+    e_all = torch.full((b, rows + 1, l + 1), neg_store, dtype=cell,
+                       device=dev)
+    f_all = torch.full((b, rows + 1, l + 1), neg_store, dtype=cell,
+                       device=dev)
+    jcols = torch.arange(l + 1, dtype=i32, device=dev)
+    seq_valid = jcols[None, 1:] <= seq_len[:, None]
+    seq_i = seq.to(i32)
+    bidx = torch.arange(b, device=dev)
+    for r in range(rows):
+        letter = letters[:, r].to(i32)
+        pred = preds[:, r]
+        pred_ok = (pred >= 0)[:, :, None]
+        pred_idx = pred.clamp(0, rows).long()
+        hp = torch.where(pred_ok, h_all[bidx[:, None], pred_idx].to(i32),
+                         POA_NEG)
+        fp = torch.where(pred_ok, f_all[bidx[:, None], pred_idx].to(i32),
+                         POA_NEG)
+        sub = torch.where(seq_i == letter[:, None], match, mismatch)
+        sub = torch.where(seq_valid, sub, POA_NEG)
+        diag = hp[:, :, :-1].max(dim=1).values + sub
+        f = torch.maximum(hp + go, fp + ge).max(dim=1).values
+        f[:, 0] = POA_NEG
+        a = f.clamp(min=0)
+        a[:, 1:] = torch.maximum(a[:, 1:], diag)
+        run = torch.cummax(a + go - ge * (jcols + 1)[None, :], dim=1).values
+        e = torch.full((b, l + 1), POA_NEG, dtype=i32, device=dev)
+        e[:, 1:] = ge * jcols[None, 1:] + run[:, :-1]
+        h = torch.maximum(a, e)
+        live = (r < n_nodes)[:, None]
+        h_all[:, r + 1] = store(torch.where(live, h, POA_NEG))
+        e_all[:, r + 1] = store(torch.where(live, e, POA_NEG))
+        f_all[:, r + 1] = store(torch.where(live, f, POA_NEG))
+
+    flat = h_all.reshape(b, -1)
+    best = flat.argmax(dim=1)                       # first max, row-major
+    best_r = (best // (l + 1)).to(i32)
+    best_j = (best % (l + 1)).to(i32)
+    aligned = flat.gather(1, best[:, None])[:, 0].to(i32) > 0
+
+    tmax = n + l
+    out = torch.zeros((b, tmax), dtype=i32, device=dev)
+    out_len = torch.zeros(b, dtype=i32, device=dev)
+    # states: 0 = H, 1 = E, 2 = F; done lanes have state 3
+    state = torch.where(aligned, 0, 3).to(i32)
+    r, j = best_r, best_j
+
+    def at(arr, row, col):
+        return arr[bidx, row.long(), col.long()].to(i32)
+
+    def at_pred(arr, pidx, col):
+        return arr[bidx[:, None], pidx, col.long()[:, None]].to(i32)
+
+    for _ in range(tmax):
+        if not bool((state < 3).any()):
+            break
+        jm1 = (j - 1).clamp(min=0)
+        hrj, erj, frj = at(h_all, r, j), at(e_all, r, j), at(f_all, r, j)
+        rr = (r - 1).clamp(0, n - 1).long()
+        pred = preds[bidx, rr]
+        pred_ok = pred >= 0
+        pred_idx = pred.clamp(0, rows).long()
+        hp_j = at_pred(h_all, pred_idx, j)
+        hp_jm1 = at_pred(h_all, pred_idx, jm1)
+        fp_j = at_pred(f_all, pred_idx, j)
+        letter = letters[bidx, rr].to(i32)
+        ch = seq_i[bidx, (j - 1).clamp(0, l - 1).long()]
+        sub = torch.where(ch == letter, match, mismatch)
+
+        in_h = state == 0
+        stop = in_h & ((r == 0) | (hrj == 0))
+        diag_eq = pred_ok & (hp_jm1 + sub[:, None] == hrj[:, None]) \
+            & (j > 0)[:, None]
+        any_diag = diag_eq.any(dim=1) & in_h & ~stop
+        diag_pred = pred_idx[bidx, diag_eq.int().argmax(dim=1)].to(i32)
+        take_f = in_h & ~stop & ~any_diag & (hrj == frj)
+        take_e = in_h & ~stop & ~any_diag & ~take_f & (hrj == erj)
+
+        in_e = state == 1
+        e_can_ext = erj == at(e_all, r, jm1) + ge
+        e_to_h = in_e & ~e_can_ext & (erj == at(h_all, r, jm1) + go)
+
+        in_f = state == 2
+        f_open = pred_ok & (hp_j + go == frj[:, None])
+        f_ext = pred_ok & (fp_j + ge == frj[:, None])
+        first_f = (f_open | f_ext).int().argmax(dim=1)
+        f_pred = pred_idx[bidx, first_f].to(i32)
+        f_is_open = f_open[bidx, first_f] & ~f_ext[bidx, first_f]
+
+        emit_node = torch.where(any_diag | in_f, r, 0)
+        emit_pos = torch.where(any_diag | in_e, j, 0)
+        do_emit = (any_diag | take_e | take_f | in_e | in_f) & (state < 3)
+        do_emit = do_emit & ~(take_e | take_f)
+        slot = out_len.clamp(0, tmax - 1).long()
+        out[bidx, slot] = torch.where(do_emit, (emit_node << 16) | emit_pos,
+                                      out[bidx, slot])
+        out_len = out_len + do_emit.to(i32)
+
+        new_state = torch.where(stop, 3, state)
+        new_r = torch.where(any_diag, diag_pred, r)
+        new_j = torch.where(any_diag, j - 1, j)
+        new_state = torch.where(take_e, 1, new_state)
+        new_state = torch.where(take_f, 2, new_state)
+        new_state = torch.where(in_e & e_to_h, 0, new_state)
+        new_j = torch.where(in_e, j - 1, new_j)
+        new_r = torch.where(in_f, f_pred, new_r)
+        new_state = torch.where(in_f & f_is_open, 0, new_state)
+        state, r, j = new_state.to(i32), new_r.to(i32), new_j.to(i32)
+    return out, out_len, aligned
+
+
+def poa_align_batch(letters: torch.Tensor, preds: torch.Tensor,
+                    n_nodes: torch.Tensor, seq: torch.Tensor,
+                    seq_len: torch.Tensor, match: int = 5,
+                    mismatch: int = -4, go: int = -8, ge: int = -6,
+                    scratch: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Local affine-gap alignment of one read per lane against its graph in
+    topological-rank order, every traceback move emitted (the contract of
+    rattle_tpu/ops/poa_device.py::poa_align_batch).
+
+    ``letters`` [B, N] uint8 raw characters; ``preds`` [B, N, P] int16 or
+    int32, P <= 8: rank + 1 of each predecessor of a rank, 0 for the
+    virtual start, -1 for padding, naming only earlier ranks; ``n_nodes``
+    [B] int32; ``seq`` [B, L] uint8, 0-padded, L <= 4096 on the card;
+    ``seq_len`` [B] int32.  Cells are stored as int16 clamped at
+    POA_CLAMP16 when L <= POA_SMALL_L, else as int32, and read back so.
+
+    Returns (packed [B, N + L] int32, length [B] int32, aligned [B] bool):
+    the moves as (rank + 1) << 16 | (pos + 1) in reverse order, 0 in a half
+    for a gap; entries from ``length`` on are undefined on the card.
+
+    ``scratch``: optional 1-d uint8 tensor on the same device with at least
+    ``poa_batch_scratch_bytes(B, N, L)`` bytes, reused across calls."""
+    dev = letters.device
+    _check("poa_align_batch letters", letters, torch.uint8, 2, dev)
+    b, n = letters.shape
+    if preds.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"poa_align_batch preds: expected int16 or int32, "
+                         f"got {preds.dtype}")
+    _check("poa_align_batch preds", preds, preds.dtype, 3, dev)
+    _check("poa_align_batch n_nodes", n_nodes, torch.int32, 1, dev, b)
+    _check("poa_align_batch seq", seq, torch.uint8, 2, dev)
+    _check("poa_align_batch seq_len", seq_len, torch.int32, 1, dev, b)
+    l, pmax = seq.shape[1], preds.shape[2]
+    if tuple(preds.shape[:2]) != (b, n) or seq.shape[0] != b:
+        raise ValueError("poa_align_batch: inputs must share [B, N]")
+    if not (1 <= n <= POA_BATCH_MAX_N and l >= 1
+            and 1 <= pmax <= POA_BATCH_MAX_P):
+        raise ValueError(f"poa_align_batch: need 1 <= N <= "
+                         f"{POA_BATCH_MAX_N}, L >= 1 and 1 <= P <= "
+                         f"{POA_BATCH_MAX_P}, got N={n} L={l} P={pmax}")
+    if not _on_card(letters):
+        return poa_align_batch_plain(letters, preds, n_nodes, seq, seq_len,
+                                     match, mismatch, go, ge)
+    if l > POA_BATCH_MAX_L:
+        raise ValueError(f"poa_align_batch: L must be at most "
+                         f"{POA_BATCH_MAX_L} on the card, got {l}")
+    need = poa_batch_scratch_bytes(b, n, l)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.uint8, device=dev)
+    else:
+        _check("poa_align_batch scratch", scratch, torch.uint8, 1, dev)
+        if scratch.numel() < need:
+            raise ValueError(f"poa_align_batch: scratch has "
+                             f"{scratch.numel()} bytes, needs {need}")
+    packed = torch.empty((b, n + l), dtype=torch.int32, device=dev)
+    length = torch.empty((b,), dtype=torch.int32, device=dev)
+    aligned = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return packed, length, aligned
+    fn = _ext.load("poa_align_batch").poa_align_batch_launch
+    _raise_on(fn(letters.data_ptr(), preds.data_ptr(),
+                 int(preds.dtype == torch.int16), pmax, n_nodes.data_ptr(),
+                 seq.data_ptr(), seq_len.data_ptr(), b, n, l, match,
+                 mismatch, go, ge, 2 if l <= POA_SMALL_L else 4,
+                 scratch.data_ptr(), packed.data_ptr(), length.data_ptr(),
+                 aligned.data_ptr(), _stream(dev)), "poa_align_batch")
+    poa_align_batch.launches += 1
+    return packed, length, aligned
+
+
+poa_align_batch.launches = 0
+
+# --------------------------------------------------------------------------
 # the pack engine's read step after poa_align: threading and re-rank
 # --------------------------------------------------------------------------
 
@@ -1083,7 +1311,7 @@ def greedy_owner(w: torch.Tensor, n_valid: int) -> torch.Tensor:
 greedy_owner.launches = 0
 
 _KERNELS = (bv_common, lis_filter, poa_align, join_expand, score_decide,
-            greedy_owner, poa_thread, poa_rerank)
+            greedy_owner, poa_thread, poa_rerank, poa_align_batch)
 
 
 def reset_launches() -> None:

@@ -11,7 +11,13 @@
 ``cluster``, ``correct`` and ``polish`` run on ``--device cuda`` (the
 default; it raises without a card) or ``--device cpu`` (the kernels' plain
 versions).  ``--poa-backend device`` (the default) aligns packs on the
-device pack engine; ``host`` runs the Python POA oracle instead.
+device pack engine; ``host`` runs the Python POA oracle instead.  With
+``--poa-backend device``, RATTLE_POA_BACKEND=lockstep runs the lockstep
+runner instead of the pack engine (graphs on the host, one
+``poa_align_batch`` launch a read step) and RATTLE_POA_BACKEND=native every
+pack on the host aligner; both write the same files.  The host aligner uses
+``native/rattle_native.cpp``, which the port compiles into
+``build/rattle_tpu_torch/librattle_native.so`` at first use.
 
 Multi-process runs follow the JAX package's launch contract: with
 RATTLE_COORDINATOR (host:port of rank 0), RATTLE_NUM_PROCESSES and
@@ -84,10 +90,27 @@ def _pack_runner(args, dev):
 
 
 def _report_poa(runner) -> None:
-    """Where the packs ran, and why any went to the host aligner."""
+    """Where the packs ran, and why any went to the host aligner: the
+    pack engine's packs, and the lockstep and native backends' when
+    RATTLE_POA_BACKEND chose them."""
     if runner is None:
         return
+    nat = runner.native
+    if nat["packs"]:
+        print(f"POA packs (native): {nat['packs']} on the host aligner "
+              f"({nat['bases']} bases)", file=sys.stderr)
+    ls = runner.lockstep.stats if runner.lockstep is not None else None
+    if ls is not None:
+        print(f"POA packs (lockstep): {ls['device_packs']} on the device "
+              f"({ls['device_bases']} bases, {ls['steps']} steps, "
+              f"{ls['t_align_s']:.2f} s aligning, {ls['t_host_s']:.2f} s "
+              f"on the host), {ls['fallback_packs']} on the host aligner "
+              f"({ls['host_bases']} bases, {ls['t_fallback_s']:.2f} s)",
+              file=sys.stderr)
     st = runner.engine.stats
+    if (nat["packs"] or ls is not None) \
+            and not (st["device_packs"] or st["fallback_packs"]):
+        return
     causes = ", ".join(f"{k[3:]} {v}" for k, v in st.items()
                        if k.startswith("fb_") and v)
     print(f"POA packs: {st['device_packs']} on the device "

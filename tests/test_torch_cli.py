@@ -83,7 +83,8 @@ def test_port_imports_neither_jax_nor_rattle_tpu():
         "                               'rattle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('correct.pack_engine', 'correct.runner', 'correct.polish',\n"
-        "          'ops.poa'):\n"
+        "          'ops.poa', 'ops.poa_device', 'ops.similarity',\n"
+        "          'ops.join_device', 'native'):\n"
         "    assert 'rattle_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or\n"
         "             n.startswith(('jax.', 'rattle_tpu.')) or\n"
@@ -105,7 +106,8 @@ def test_port_sources_import_neither_jax_nor_rattle_tpu():
     for mod in ("ops/poa.py", "ops/kernels.py", "correct/consensus.py",
                 "correct/driver.py", "correct/polish.py",
                 "correct/pack_engine.py", "correct/runner.py",
-                "pipeline/cli.py"):
+                "pipeline/cli.py", "ops/poa_device.py", "ops/similarity.py",
+                "ops/join_device.py", "native.py"):
         assert os.path.join("rattle_tpu_torch", mod) in scanned
     for path in paths:
         with open(path) as fh:

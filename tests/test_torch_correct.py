@@ -161,6 +161,8 @@ def test_correct_resume_is_byte_identical(clustered, tmp_path, monkeypatch):
             return runner(packs, p, msa_fn)
         wrapped.batch_msa = runner.batch_msa
         wrapped.engine = runner.engine
+        wrapped.lockstep = runner.lockstep
+        wrapped.native = runner.native
         return wrapped
 
     monkeypatch.setattr("rattle_tpu_torch.correct.runner.make_pack_runner",

@@ -18,8 +18,6 @@ import torch
 import jax.numpy as jnp
 
 from rattle_tpu.correct import pack_engine as jax_pe
-from rattle_tpu.correct import tpu_runner as jax_runner
-from rattle_tpu.ops import poa as jax_poa
 from rattle_tpu_torch.correct import pack_engine as pe
 from rattle_tpu_torch.correct import runner
 from rattle_tpu_torch.ops import kernels
@@ -65,12 +63,12 @@ def _over_capacity_packs():
 def engines():
     """Both engines run once over the same packs (device packs in lane
     groups of 8, plus the two over-capacity packs through the host
-    aligner)."""
+    aligner).  The JAX side's host packs go to ops/poa.py: its host aligner
+    loads the native library committed in native/, which is older than
+    its source, while the port's builds its own from the source."""
     packs = _packs() + _over_capacity_packs()
-    jp = jax_poa.POAParams()
     jax_eng = jax_pe.PackEngine(max_lanes=8)
-    want = jax_eng.msa_many(
-        packs, host_fn=lambda s: jax_runner._host_msa(s, jp))
+    want = jax_eng.msa_many(packs, host_fn=_oracle_msa)
     port_eng = pe.PackEngine(device="cpu", max_lanes=8)
     got = port_eng.msa_many(
         packs, host_fn=lambda s: runner._host_msa(s, port_poa.POAParams()))
