@@ -5,7 +5,7 @@ Run from the repository root on a machine with a card:
     python3 chip_smoke.py
 
 Phases, each ending in one summary line:
-  1. device and build: the card's name and power limit; the nine CUDA
+  1. device and build: the card's name and power limit; the eleven CUDA
      kernels and the tensor-core rate probe (csrc/mma_rate.cu) compiled with
      nvcc from rattle_tpu_torch/csrc (all at once), and the host aligner's
      library built from native/rattle_native.cpp into build/;
@@ -14,6 +14,18 @@ Phases, each ending in one summary line:
      CUDA-event times, the bf16 matmul yardstick and the share of the bound,
      whose 1-bit rate is the int8 peak scaled by the b1 / s8 ratio of
      register-only mma.sync loops timed in this run;
+ 2b. gate_block (the wave's gate: bv_common's tile with the tests, the
+     cache fold, class routing and compaction) and absorb_rest (the sweep
+     replay) against their plain versions, exactly (rows, cols, class
+     counts and w; the packed replay): on the main path's first block
+     wave and first sweep wave (captured by the same _ScoreCapture as
+     phase 3b, below), with a score cache of random 0/1/2, the cache off,
+     --iso groups, the reverse strand, a table that passes nothing,
+     threshold 0 and ragged shapes; timed at the block and at two sweep
+     tiles beside the parent's path (bv_common and the eager chain) and
+     the plain version, each beside its bound (bit products at phase 2's
+     1-bit rate, or the bytes it counts), absorb_rest on the sweep's win
+     matrix and a random 4,096 x 4,096 one;
   3. lis_filter against its plain version (bases, hc and n_dist exactly,
      var to rtol 1e-5 with the same infinities): on synthetic lists at the
      three tiers' JAX chunk shapes and on the whole largest launch of each
@@ -68,12 +80,15 @@ Phases, each ending in one summary line:
      --iso`` on 8,192 reads; in each run every read must land in one
      cluster and every cluster kernel must have run, and lis_filter's
      launches are split by (tier M, launch B)
-     (``kernels.lis_filter.shapes``), beside the run's peak device memory;
-     the ``--rna`` and cDNA runs again under torch.profiler for their CUDA
-     launch calls, device busy time and idle share; and each of the three
-     again with the score path's three wrappers pointed at their plain
-     versions (a switch of this script), whose clusters.out must equal the
-     kernel run's byte for byte;
+     (``kernels.lis_filter.shapes``), beside the run's peak device memory,
+     its sections' host and device times and its host reads (at most two
+     a strand and one a wave outside the rare paths, checked; bv_common
+     never launches: its tile runs inside gate_block); the ``--rna`` and
+     cDNA runs again under torch.profiler for their CUDA launch calls,
+     synchronising calls, device busy time and idle share; and each of the
+     three again with the wave's five wrappers (gate, score path, both
+     replays) pointed at their plain versions (a switch of this script),
+     whose clusters.out must equal the kernel run's byte for byte;
   6. the correct path: ``correct`` on the ``--rna`` run's reads and
      clusters.out (reads of 300-3,000 bp, packs of up to 200 reads, all
      three widths; one launch of each of poa_align, poa_thread and
@@ -120,15 +135,17 @@ Phases, each ending in one summary line:
      pair rescored on the host, at least one rescore needing the other
      rank's read; at full size ``cluster --rna`` and cDNA ``cluster`` with
      ``--shard-input`` on phase 5's 8,192 reads, equal to phase 5's
-     output, with bv_common and lis_filter launched on each rank; and
+     output, with every cluster kernel but bv_common launched on each
+     rank; and
      ``polish --rna --summary`` on phase 6's consensi.fq, equal to phase
      6's files.  Rank 1 writes nothing.  The phase line gives each run's
      wall time beside phase 5's single-process time, each rank's bytes and
      seconds in collectives and its launch counts.
 
 Launch counts are set to 0 just before each CLI run and read just after it
-(in each rank for phase 8); the kernels line reports the five cluster
-kernels from the ``--rna`` ``cluster`` run, poa_align, poa_thread and
+(in each rank for phase 8); the kernels line reports the cluster kernels
+from the ``--rna`` ``cluster`` run (bv_common's launches there are 0: its
+lone-call numbers are phase 2's), poa_align, poa_thread and
 poa_rerank from the ``correct`` run and poa_align_batch from the lockstep
 ``correct`` run.  With ``--kernels-only`` the script
 stops after phase 4b (a quick build-and-compare of the kernels) and prints
@@ -333,35 +350,54 @@ def _match_lists(b: int, m: int, dev, seed: int):
 
 
 class _ScoreCapture:
-    """Pass-throughs for cluster/bulk.py's join_expand, score_decide and
-    greedy_owner that keep, for every launch, the inputs of the join and of
-    the decision that follows it (the win matrix and score cache as they
-    were before it), by (class width, m_cap) in launch order, and every
-    block replay's win matrix.  The engine's own calls run unchanged."""
+    """Pass-throughs for cluster/bulk.py's wave kernels that keep, for every
+    launch, the inputs of the join and of the decision that follows it (the
+    win matrix and score cache as they were before it), by (class width,
+    m_cap) in launch order, every block replay's win matrix, and every
+    gate's and sweep replay's inputs (w and the cache as they were before
+    the gate).  With ``score`` False only the gate's and the sweep replay's
+    are kept.  The engine's own calls run unchanged."""
 
     def __init__(self):
         from rattle_tpu_torch.ops import kernels
         self.join, self.decide, self.greedy = {}, {}, []
+        self.gate, self.absorb = [], []
+        self.score = True
         self._key = None
 
         def join_expand(*args, total=None, bound=None):
-            self._key = (args[6].shape[1], args[11])
-            kept = [a.clone() if i < 2 else a for i, a in enumerate(args)]
-            self.join.setdefault(self._key, []).append(kept)
+            if self.score:
+                self._key = (args[6].shape[1], args[11])
+                kept = [a.clone() if i < 2 else a
+                        for i, a in enumerate(args)]
+                self.join.setdefault(self._key, []).append(kept)
             return kernels.join_expand(*args, total=total, bound=bound)
 
         def score_decide(*args, border=None):
-            self.decide.setdefault(self._key, []).append(
-                [a.clone() if isinstance(a, torch.Tensor) else a
-                 for a in args])
+            if self.score:
+                self.decide.setdefault(self._key, []).append(
+                    [a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args])
             return kernels.score_decide(*args, border=border)
 
         self.join_expand, self.score_decide = join_expand, score_decide
 
     def greedy_owner(self, w, n_valid):
         from rattle_tpu_torch.ops import kernels
-        self.greedy.append((w.clone(), n_valid))
+        if self.score:
+            self.greedy.append((w.clone(), n_valid))
         return kernels.greedy_owner(w, n_valid)
+
+    def gate_block(self, *args):
+        from rattle_tpu_torch.ops import kernels
+        self.gate.append([a.clone() if i in (9, 13) and a is not None else a
+                          for i, a in enumerate(args)])
+        return kernels.gate_block(*args)
+
+    def absorb_rest(self, w):
+        from rattle_tpu_torch.ops import kernels
+        self.absorb.append(w.clone())
+        return kernels.absorb_rest(w)
 
 
 def _capture_lists(dev):
@@ -370,8 +406,10 @@ def _capture_lists(dev):
     the CLI's order (stable length sort), ``cluster --rna`` parameters, one
     block wave, run under the profiler, whose split of lis_filter's launches
     and device time by tier and by (M, B, bound bucket) it prints.  The same
-    wave's score-path inputs are kept by a _ScoreCapture.  Returns ({M: [p1,
-    p2, valid, bound]}, the capture)."""
+    wave's score-path inputs are kept by a _ScoreCapture, and so are the
+    gate's and the replay's of the first sweep wave that follows it (the
+    block's seeds against the first columns after it).  Returns ({M: [p1,
+    p2, valid, bound]}, the capture, with the engine as ``cap.engine``)."""
     from rattle_tpu_torch.cluster import bulk
     from rattle_tpu_torch.config import ClusterParams
     from rattle_tpu_torch.pipeline.profile_cluster import (lis_split,
@@ -385,10 +423,18 @@ def _capture_lists(dev):
     ids = np.arange(eng.k_block)
     cap = _ScoreCapture()
     cap.widths = eng._cls_widths
+    cap.engine = eng
+    packed = []
     with _bulk_names(**{n: getattr(cap, n) for n in SCORE_PATH}):
         split, _prof, kept = lis_split(
-            lambda: eng._wave(ids, ids, params.bv_threshold, ordered=True),
+            lambda: packed.append(eng._wave(ids, ids, params.bv_threshold,
+                                            ordered=True)),
             keep=True)
+        cap.score = False
+        seeds = ids[(packed[0] >> 1) == ids]
+        cols = np.arange(eng.k_block, min(eng.n, eng.k_block +
+                                          eng.sweep_cpad))
+        eng._wave(seeds, cols, params.bv_threshold, ordered=False)
     print_split("first wave (profiled)", split)
     return kept, cap
 
@@ -472,18 +518,18 @@ LIS_RAGGED = ((1, 128), (33, 512), (4097, 128))
 LIS_ADVERSARIAL = ((256, 128), (64, 2048))
 
 
-def phase_lis(dev):
+def phase_lis(dev, kept):
     """The kernel against its plain version on synthetic lists at the three
     tiers' chunk shapes, on the whole largest launch of each tier that the
-    main path's first wave hands it with that launch's own bound, on the
-    adversarial lists of utils/synth.lis_cases and at ragged B."""
+    main path's first wave hands it with that launch's own bound (``kept``,
+    from _capture_lists), on the adversarial lists of utils/synth.lis_cases
+    and at ragged B."""
     from rattle_tpu_torch.utils.synth import lis_cases
     rows = []
     for tier, m in enumerate((128, 512, 2048)):
         b = JAX_SCORE_CHUNKS[0][tier]
         args, bound = _match_lists(b, m, dev, seed=m)
         rows.append(_lis_row("synthetic", args, bound))
-    kept, cap = _capture_lists(dev)
     for p1, p2, valid, bound in kept.values():
         rows.append(_lis_row("main path launch", [p1, p2, valid], bound,
                              sliced=True))
@@ -503,7 +549,231 @@ def phase_lis(dev):
           f"((B, M) {[r['shape'] for r in rows[3:]]}), on the adversarial "
           f"lists {sorted(set(names))} at (B, M) {list(LIS_ADVERSARIAL)} and "
           f"at ragged (B, M) {list(LIS_RAGGED)}")
-    return rows, cap
+    return rows
+
+
+# phase 2b: ragged gates (rows x columns, random reads, unordered) and the
+# sweep replay's random win matrices (seed rows x columns, win density)
+GATE_RAGGED = ((1000, 777), (1, 129), (129, 15), (15, 1), (333, 4097))
+ABSORB_RANDOM = ((4096, 4096, 0.0005), (1, 1, 0.5), (3, 1000, 0.3),
+                 (700, 4097, 0.0), (4096, 129, 0.02))
+# bytes of one row's or column's vectors the gate reads: bvc, order, group,
+# nk int32 and the read id int64
+GATE_VEC_BYTES = 24
+
+
+def _gate_same(what: str, args):
+    """gate_block and gate_block_plain on the same inputs, each on its own
+    copy of w: rows, cols, class counts (device and host) and w exact.
+    Returns the kernel's outputs."""
+    from rattle_tpu_torch.ops import kernels
+    ka, pa = list(args), list(args)
+    ka[13], pa[13] = args[13].clone(), args[13].clone()
+    got = kernels.gate_block(*ka)
+    ref = kernels.gate_block_plain(*pa)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("rows", "cols", "class_counts"), got, ref):
+        check(x.shape == y.shape and bool(torch.equal(x, y)),
+              f"phase 2b {what}: {name} differ from the plain version "
+              f"({tuple(x.shape)} against {tuple(y.shape)})")
+    check(got[3] == ref[3], f"phase 2b {what}: host class counts {got[3]} "
+          f"against {ref[3]}")
+    check(bool(torch.equal(ka[13], pa[13])), f"phase 2b {what}: w differs "
+          "from the plain version's")
+    return got
+
+
+def _gate_args(eng, rows, cols, ordered: bool, words=None, groups=None,
+               cache="mix", tab=None, w_density: float = 0.0,
+               strand_val: int = 2, seed: int = 0):
+    """gate_block's arguments for reads ``rows`` x ``cols`` of the engine's
+    sketch: ``ordered`` tests row position < column position (a block),
+    else every pair (a sweep); ``words`` the columns' packed words (default
+    the forward sketch's); ``groups`` per read (default the engine's);
+    ``cache`` "mix" (a random 0/1/2 score cache), None, or a tensor; ``tab``
+    (default the main path's threshold); w with ``w_density`` of random
+    1s and 2s."""
+    dev = eng.device
+    sk = eng.sk
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+    c = torch.from_numpy(np.asarray(cols, np.int64)).to(dev)
+    a, n_c = r.shape[0], c.shape[0]
+    grp = eng._groups_dev if groups is None else groups
+    if ordered:
+        order_r = torch.arange(a, dtype=torch.int32, device=dev)
+        order_c = torch.arange(n_c, dtype=torch.int32, device=dev)
+    else:
+        order_r = torch.zeros(a, dtype=torch.int32, device=dev)
+        order_c = torch.ones(n_c, dtype=torch.int32, device=dev)
+    if isinstance(cache, str):
+        cache = torch.randint(0, 3, (eng.cache_n ** 2,), generator=g,
+                              device=dev, dtype=torch.uint8)
+    u = torch.rand((a, n_c), generator=g, device=dev)
+    w = torch.where(u < w_density / 2, 1, torch.where(u < w_density, 2, 0)
+                    ).to(torch.int8)
+    return [sk.bvp[r], sk.bvc[r], order_r, grp[r],
+            (sk.bvp if words is None else words)[c], sk.bvc[c], order_c,
+            grp[c], eng._bv_table(eng.p.bv_threshold) if tab is None else tab,
+            cache, eng.cache_n, r, c, w, strand_val, eng.nk, eng._bounds_dev]
+
+
+def _gate_row(what: str, args, got, peak_b1: float) -> dict:
+    """One gate timed (CUDA-event medians) as the kernel, as the parent's
+    path (bv_common and the eager chain: gate_block_plain on bv_common) and
+    as the plain version, beside its bound: the larger of its bit products
+    at the 1-bit rate and its bytes (the packed words, each row's and
+    column's vectors, the cache bytes of the passing pairs, the cached wins
+    read and written in w, the fresh-pair mask and the pair list)."""
+    from rattle_tpu_torch.ops import kernels
+    a, c = args[0].shape[0], args[4].shape[0]
+    w = args[13].clone()
+    run = list(args)
+    run[13] = w
+    ms = time_ms(lambda: kernels.gate_block(*run))
+    parent_ms = time_ms(lambda: kernels.gate_block_plain(
+        *run, common=kernels.bv_common))
+    plain_ms = time_ms(lambda: kernels.gate_block_plain(*run), reps=3,
+                       warmup=1)
+    nocache = list(run)
+    nocache[9] = None
+    rows, cols, _cc, _n = kernels.gate_block(*nocache)
+    wins = 0
+    if args[9] is not None:
+        cv = args[9][args[11][rows] * args[10] + args[12][cols]]
+        wins = int((cv == 2).sum())
+    fresh = got[0].shape[0]
+    parts = dict(words=(a + c) * 512, vectors=(a + c) * GATE_VEC_BYTES
+                 + 4097 * 4,
+                 cache=rows.shape[0] if args[9] is not None else 0,
+                 w=2 * wins, mask=a * -(-c // 32) * 4, pairs=fresh * 16)
+    nbytes = sum(parts.values())
+    ops = 2 * a * c * 4096
+    bound = max(nbytes / PEAK_BYTES, ops / peak_b1) * 1e3
+    row = dict(what=what, shape=[a, c], passing=int(rows.shape[0]),
+               fresh=fresh, cached_wins=wins, ms=ms, parent_ms=parent_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+               bound_by="bytes" if nbytes / PEAK_BYTES > ops / peak_b1
+               else "operations", bound_share=bound / ms, bytes=parts,
+               operations=ops, max_abs_err=0)
+    print(f"  gate_block {what} [{a}x{c}]: {row['passing']} passing, "
+          f"{fresh} fresh; kernel {ms:.4f} ms, parent path (bv_common + "
+          f"eager chain) {parent_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({row['bound_by']}: {ops} bit operations, "
+          f"{nbytes} bytes {parts}), {100 * bound / ms:.1f}% of the bound; "
+          "no PyTorch call computes the gate")
+    return row
+
+
+def _absorb_row(what: str, w: torch.Tensor) -> dict:
+    """absorb_rest timed beside its plain version and its bound: the bytes
+    of the rows each column needs read up to its first win (every row where
+    none wins) and the [C] int32 output."""
+    from rattle_tpu_torch.ops import kernels
+    s_, c = w.shape
+    ms = time_ms(lambda: kernels.absorb_rest(w))
+    plain_ms = time_ms(lambda: kernels.absorb_rest_plain(w))
+    has = w > 0
+    first = torch.argmax(has.to(torch.uint8), dim=0)
+    read = torch.where(has.any(dim=0), first + 1, s_)
+    nbytes = int(read.sum()) + 4 * c
+    bound = nbytes / PEAK_BYTES * 1e3
+    row = dict(what=what, shape=[s_, c], ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound, bound_by="bytes",
+               bound_share=bound / ms, bytes=nbytes, max_abs_err=0)
+    print(f"  absorb_rest {what} [{s_}x{c}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms (bytes: {nbytes}), "
+          f"{100 * bound / ms:.1f}% of the bound")
+    return row
+
+
+def phase_gate(dev, cap, peak_b1: float):
+    """Phase 2b: gate_block exactly against gate_block_plain (rows, cols,
+    class counts and w) on the first block wave's and the first sweep
+    wave's own inputs (``cap``, from _capture_lists), and on the engine's
+    reads with a score cache of random 0/1/2, the cache off, --iso-style
+    groups, the reverse strand (strand_val 1, reverse-strand words, w
+    already holding wins), a table that passes nothing, threshold 0 (an
+    all-zero table) and ragged shapes; timed at the block, at the captured
+    sweep tile and at a 1,024 x all-reads sweep.  absorb_rest exactly
+    against absorb_rest_plain on the sweep's win matrix and random ones,
+    timed at the sweep's and at 4,096 x 4,096."""
+    from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.ops.sketch_device import build_device_sketch
+    eng = cap.engine
+    check(len(cap.gate) == 2 and len(cap.absorb) == 1,
+          f"phase 2b: captured {len(cap.gate)} gates and {len(cap.absorb)} "
+          "sweep replays, expected a block's, then a sweep's")
+    block, sweep = cap.gate
+    blk = block[11].cpu().numpy()
+    rng = np.random.default_rng(2)
+    n = eng.n
+    rev_bvp = build_device_sketch(eng.seqs, eng.p.kmer_size, True,
+                                  device=dev).rev_bvp
+    iso = torch.from_numpy(rng.integers(0, 32, n).astype(np.int32)).to(dev)
+    wide = rng.choice(n, min(1024, n), replace=False)
+    half = len(blk) // 2
+    cases = [
+        ("first wave's block", block),
+        ("first sweep tile", sweep),
+        ("block, cache 0/1/2, w 1% wins", _gate_args(eng, blk, blk, True,
+                                                     w_density=0.01)),
+        ("block, cache off", _gate_args(eng, blk, blk, True, cache=None)),
+        ("block, --iso groups", _gate_args(eng, blk, blk, True, groups=iso,
+                                           seed=1)),
+        ("block, reverse strand", _gate_args(
+            eng, blk, blk, True, words=rev_bvp, w_density=0.02,
+            strand_val=1, seed=2)),
+        ("block, nothing passes", _gate_args(
+            eng, blk, blk, True, tab=torch.full((4097,), 4097,
+                                                dtype=torch.int32,
+                                                device=dev))),
+        ("threshold 0", _gate_args(
+            eng, blk[:min(1000, half)], blk[half:half + 777], True,
+            tab=torch.zeros(4097, dtype=torch.int32, device=dev), seed=3)),
+        ("sweep 1024 x every read", _gate_args(eng, wide, np.arange(n),
+                                               False, seed=4)),
+        ("sweep, reverse strand, cache off", _gate_args(
+            eng, wide, np.arange(n), False, words=rev_bvp, cache=None,
+            w_density=0.01, strand_val=1, seed=5)),
+    ]
+    for i, (a, c) in enumerate(GATE_RAGGED):
+        cases.append((f"ragged {a}x{c}", _gate_args(
+            eng, rng.choice(n, a, replace=False),
+            rng.choice(n, c, replace=False), i % 2 == 0, w_density=0.01,
+            seed=10 + i)))
+    rows, outs = [], {}
+    for what, args in cases:
+        outs[what] = got = _gate_same(what, args)
+        if what == "block, nothing passes":
+            check(got[0].shape[0] == 0, "phase 2b: a pair passed the table "
+                  "that passes nothing")
+    check(outs["first wave's block"][0].shape[0] > 0
+          and outs["threshold 0"][0].shape[0] > 0,
+          "phase 2b: no fresh pair in the block or at threshold 0")
+    for what in ("first wave's block", "first sweep tile",
+                 "sweep 1024 x every read"):
+        rows.append(_gate_row(what, dict(cases)[what], outs[what], peak_b1))
+    g = torch.Generator(device=dev).manual_seed(7)
+    absorb_cases = [("first sweep tile", cap.absorb[0])]
+    for s_, c, dens in ABSORB_RANDOM:
+        u = torch.rand((s_, c), generator=g, device=dev)
+        absorb_cases.append((f"random {s_}x{c} p={dens}", torch.where(
+            u < dens / 2, 1, torch.where(u < dens, 2, 0)).to(torch.int8)))
+    absorb = []
+    for what, w in absorb_cases:
+        got = kernels.absorb_rest(w)
+        ref = kernels.absorb_rest_plain(w)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, ref)), f"phase 2b absorb_rest {what}: "
+              "differs from the plain version")
+        if what in ("first sweep tile", "random 4096x4096 p=0.0005"):
+            absorb.append(_absorb_row(what, w))
+    print(f"phase 2b gate_block + absorb_rest: gate_block exact (rows, cols, "
+          f"class counts, w) against its plain version on {len(cases)} "
+          f"cases ({', '.join(w for w, _a in cases)}), absorb_rest on "
+          f"{len(absorb_cases)} win matrices")
+    return dict(gate_block=rows, absorb_rest=absorb)
 
 
 def _pow2(n: int) -> int:
@@ -1230,20 +1500,20 @@ def _replay_groups(dev, cap) -> dict:
     """Every read step of each captured group again
     (profile_correct.replay_device_ms), poa_thread and poa_rerank against
     their plain versions on the same alignment: every state field exact
-    after every step, at the group's own lane count, with the kernels'
-    device time summed over the steps beside the sum of each step's
-    bound."""
+    after every step, at the group's own lane count; then the kernels'
+    steps alone under the profiler, their device time summed over the
+    steps beside the sum of each step's bound."""
     from rattle_tpu_torch.pipeline.profile_correct import replay_device_ms
     check(sorted(cap.groups) == WIDTHS,
           f"correct: no group captured at some width: {sorted(cap.groups)}")
 
-    def step(st, t, w, scratch, scores):
+    def check_step(st, t, w, scratch, scores):
         _aligned, plain = _step_pair(st, t, w, scratch, **scores)
         bad = _state_diff(st, plain)
         check(not bad, f"correct group W={st['seqs'].shape[2]} step {t}: "
               f"{bad} differ from the plain versions")
 
-    return replay_device_ms(dev, cap, step)
+    return replay_device_ms(dev, cap, check=check_step)
 
 
 def _cli(argv, capture: bool = False):
@@ -1255,10 +1525,15 @@ def _cli(argv, capture: bool = False):
     return buf.getvalue()
 
 
-# the kernels every cluster run launches; the last three are the score path
-CLUSTER_KERNELS = ("bv_common", "lis_filter", "join_expand", "score_decide",
-                   "greedy_owner")
-SCORE_PATH = CLUSTER_KERNELS[2:]
+# the kernels a cluster run launches: the gate, the score path, the block
+# replay and the sweep replay (a run of at most one block, k_block = 4,096
+# reads, has no sweep: phases 7 and 8's small inputs); SCORE_PATH: the
+# wave's kernels the plain-parity runs point at their plain versions
+CLUSTER_KERNELS = ("gate_block", "lis_filter", "join_expand", "score_decide",
+                   "greedy_owner", "absorb_rest")
+BLOCK_KERNELS = CLUSTER_KERNELS[:-1]
+SCORE_PATH = ("gate_block", "join_expand", "score_decide", "greedy_owner",
+              "absorb_rest")
 # cudaLaunchKernel calls each 8,192-read cluster run should stay below
 LAUNCH_TARGETS = {"rna": 60_000, "cdna": 110_000}
 
@@ -1283,11 +1558,28 @@ def _host_rescores() -> int:
     return int(metrics.GLOBAL.counters.get("cluster.host_rescores", 0))
 
 
+def _wave_reads(label: str, flags) -> dict:
+    """The last cluster run's device->host reads (cluster/bulk.py counts
+    them): the waves, the reads of their fixed schedule, the most of them in
+    one wave, and the rare paths' reads apart.  Checks the engine's rule:
+    at most two reads a strand and one a wave outside the rare paths."""
+    from rattle_tpu_torch.utils import metrics
+    c = metrics.GLOBAL.counters
+    res = {k: int(c.get("cluster." + k, 0))
+           for k in ("waves", "host_reads", "rare_reads", "wave_reads_max")}
+    strands = 1 if "--rna" in flags else 2
+    check(res["waves"] > 0 and res["wave_reads_max"] <= 1 + 2 * strands,
+          f"{label}: {res['wave_reads_max']} host reads in one wave, the "
+          f"rule allows {1 + 2 * strands} ({res})")
+    res["reads_a_wave"] = res["host_reads"] / res["waves"]
+    return res
+
+
 @contextlib.contextmanager
 def _plain_score_path():
-    """cluster/bulk.py's score-path kernels pointed at their plain versions
-    for the duration of the block: a switch of
-    this script only, not of the package."""
+    """cluster/bulk.py's wave kernels (SCORE_PATH: the gate, the score path
+    and both replays) pointed at their plain versions for the duration of
+    the block: a switch of this script only, not of the package."""
     from rattle_tpu_torch.ops import kernels
     with _bulk_names(**{k: getattr(kernels, k + "_plain")
                         for k in SCORE_PATH}):
@@ -1296,9 +1588,11 @@ def _plain_score_path():
 
 def _main_run(label, reads, flags, plain: bool = False):
     """Cluster ``reads`` on cuda; every read must land in one cluster and
-    every cluster kernel must have launched in this run.  With ``plain``
-    the score path runs its plain versions (``_plain_score_path``), and
-    none of its three kernels may launch."""
+    every cluster kernel must have launched in this run, bv_common never
+    (its tile runs inside gate_block: no [A, C] count matrix is written),
+    and the engine's host reads must keep its rule (``_wave_reads``).  With
+    ``plain`` the wave runs its plain versions (``_plain_score_path``), and
+    none of their kernels may launch."""
     from rattle_tpu_torch.io import hpsio
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.utils import metrics
@@ -1315,6 +1609,9 @@ def _main_run(label, reads, flags, plain: bool = False):
           f"{label}: a kernel never ran: {launches}")
     check(not plain or not any(launches[k] for k in SCORE_PATH),
           f"{label}: a score-path kernel ran in the plain run: {launches}")
+    check(launches["bv_common"] == 0, f"{label}: bv_common launched "
+          f"{launches['bv_common']} times on the cluster path")
+    reads_ = _wave_reads(label, flags)
     clusters = hpsio.read_clusters(os.path.join(out, "clusters.out"))
     members = [s.seq_id for c in clusters for s in c.seqs]
     check(sorted(members) == list(range(len(reads))),
@@ -1329,7 +1626,9 @@ def _main_run(label, reads, flags, plain: bool = False):
                greedy_s=st.get("cluster.greedy"),
                merge_s=st.get("cluster.merge"),
                sections_s={k[8:]: v for k, v in st.items()
-                           if k[8:] in ("gate", "score", "rescore", "replay")},
+                           if k[8:].split("_")[0] in ("gate", "score",
+                                                      "rescore", "replay")},
+               host_reads=reads_,
                host_rescores=_host_rescores(), launches=launches,
                lis_shapes={f"M={m} B={b}": n for (m, b), n in
                            sorted(kernels.lis_filter.shapes.items())},
@@ -1339,7 +1638,10 @@ def _main_run(label, reads, flags, plain: bool = False):
           f"({res['reads_per_s']:.1f} reads/s: greedy {res['greedy_s']:.2f} s,"
           f" merge {res['merge_s']:.2f} s; sections "
           f"{ {k: round(v, 3) for k, v in res['sections_s'].items()} }), "
-          f"{res['host_rescores']} host rescores, peak "
+          f"host reads: {reads_['host_reads']} in {reads_['waves']} waves "
+          f"({reads_['reads_a_wave']:.2f} a wave, at most "
+          f"{reads_['wave_reads_max']}), {reads_['rare_reads']} on rare "
+          f"paths; {res['host_rescores']} host rescores, peak "
           f"{res['peak_mem_gib']:.2f} GiB, launches {launches}")
     print(f"  {label} lis_filter launches by (M, B): {res['lis_shapes']}")
     return res, fq, os.path.join(out, "clusters.out")
@@ -1347,8 +1649,10 @@ def _main_run(label, reads, flags, plain: bool = False):
 
 def _api_launches(label, fq, flags) -> dict:
     """The same cluster run again, under torch.profiler: its CUDA runtime
-    launch calls (cudaLaunchKernel and the like), device busy time and idle
-    share, beside the run's target."""
+    launch calls (cudaLaunchKernel and the like) beside the run's target,
+    its synchronising calls (cudaStreamSynchronize, cudaMemcpyAsync: calls
+    and host seconds) and device-to-host copies, device busy time and idle
+    share."""
     from rattle_tpu_torch.pipeline.profile_cluster import profiled_launches
     out = os.path.join(WORK, f"{label}_profiled")
     os.makedirs(out)
@@ -1357,7 +1661,8 @@ def _api_launches(label, fq, flags) -> dict:
     res["target"] = LAUNCH_TARGETS[label]
     print(f"  {label}: {res['launch_calls']} CUDA launch calls "
           f"({'below' if res['launch_calls'] < res['target'] else 'ABOVE'} "
-          f"the target {res['target']}; by call {res['by_call']}), device "
+          f"the target {res['target']}; by call {res['by_call']}), "
+          f"synchronising calls {res['syncs']}, device "
           f"busy {res['device_busy_s']:.3f} s of {res['wall_s']:.3f} s "
           f"profiled, idle share {res['idle_share']:.3f}")
     return res
@@ -1409,10 +1714,17 @@ def phase_main_path():
     print(f"phase 5 main path: cluster --rna, cDNA cluster and cluster --rna "
           f"--iso on {MAIN_READS} reads of {MAIN_FAMILIES} families on cuda, "
           "every read in one cluster, every cluster kernel launched in each "
-          f"run ({rna['profiled']['launch_calls']} / "
+          f"run and bv_common in none ({rna['profiled']['launch_calls']} / "
           f"{cdna['profiled']['launch_calls']} CUDA launch calls in --rna / "
-          "cDNA), clusters.out byte-identical with the score path on its "
-          "plain versions; peak device memory "
+          "cDNA; host reads a wave "
+          f"{rna['host_reads']['reads_a_wave']:.2f} / "
+          f"{cdna['host_reads']['reads_a_wave']:.2f} / "
+          f"{iso['host_reads']['reads_a_wave']:.2f}, at most "
+          f"{rna['host_reads']['wave_reads_max']} / "
+          f"{cdna['host_reads']['wave_reads_max']} / "
+          f"{iso['host_reads']['wave_reads_max']}), clusters.out "
+          "byte-identical with the wave on its plain versions; peak device "
+          "memory "
           f"{rna['peak_mem_gib']:.2f} / {cdna['peak_mem_gib']:.2f} / "
           f"{iso['peak_mem_gib']:.2f} GiB")
     return dict(rna=rna, cdna=cdna, iso=iso), fq, clusters_out
@@ -1515,7 +1827,8 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
     for w, g in groups.items():
         print(f"    W={w}: {g['lanes']} lanes x {g['steps']} steps, "
               f"{g['nodes']} nodes (largest lane {g['max_nodes']}), "
-              f"{g['fallback_lanes']} lanes fallen back; " + "; ".join(
+              f"{g['fallback_lanes']} lanes fallen back, {g['traces']} "
+              f"trace(s) taken; " + "; ".join(
                   f"{k} {g[k]['device_ms']:.3f} ms, bound "
                   f"{g[k]['bound_ms']:.3f} ms ({100 * g[k]['share']:.1f}%)"
                   for k in ("poa_thread", "poa_rerank")))
@@ -1541,7 +1854,7 @@ def phase_correct(fq: str, clusters_out: str, n_reads: int):
           "consensi")
     check(os.path.exists(os.path.join(pout, "polish_summary.tsv")),
           "polish: no polish_summary.tsv")
-    check(all(launches_p[k] for k in CLUSTER_KERNELS),
+    check(all(launches_p[k] for k in BLOCK_KERNELS),
           f"polish: a cluster kernel never ran: {launches_p}")
     res["polish"] = dict(transcripts=n_tx, polish_s=wall_p,
                          launches=launches_p, stats=st_p)
@@ -1947,7 +2260,7 @@ def phase_parity():
                                 host_rescores=_host_rescores())
             with open(os.path.join(out, "clusters.out"), "rb") as fh:
                 outs.append(fh.read())
-        check(all(runs["cuda"]["launches"][k] for k in CLUSTER_KERNELS),
+        check(all(runs["cuda"]["launches"][k] for k in BLOCK_KERNELS),
               f"parity {label}: a kernel never ran on cuda: {runs['cuda']}")
         check(not any(runs["oracle"]["launches"].values()),
               f"parity {label}: --oracle launched a kernel: {runs['oracle']}")
@@ -2096,21 +2409,26 @@ def phase_ranks(main_res):
         for d in outs[label][1:]:
             check(os.listdir(d) == [], f"phase 8 {label}: a rank other "
                   f"than 0 wrote {os.listdir(d)}")
-        # every rank launches both cluster kernels at full size; on the
-        # small inputs a rank's columns may gate no pair, so there the
-        # ranks together must have launched them (and, in polish, each
-        # rank aligns every pack)
+        # every rank launches the block's cluster kernels at full size (a
+        # sweep's columns may all lie on another rank, so absorb_rest need
+        # not run on each); on the small inputs a rank's columns may gate no
+        # pair, so there the ranks together must have launched them (and,
+        # in polish, each rank aligns every pack)
         need = ("poa_align",) if argv[0] == "polish" else ()
         if label in single:
-            need += CLUSTER_KERNELS
+            need += BLOCK_KERNELS
         for rank, r in enumerate(runs):
             check(all(r["launches"][k] for k in need),
                   f"phase 8 {label}: rank {rank} launched {r['launches']}")
             check(r["calls"] > 0, f"phase 8 {label}: rank {rank} made no "
                   "collective")
         check(all(sum(r["launches"][k] for r in runs)
-                  for k in CLUSTER_KERNELS),
+                  for k in (CLUSTER_KERNELS if label in single
+                            else BLOCK_KERNELS)),
               f"phase 8 {label}: a cluster kernel never ran: "
+              f"{[r['launches'] for r in runs]}")
+        check(not any(r["launches"]["bv_common"] for r in runs),
+              f"phase 8 {label}: bv_common launched on the cluster path: "
               f"{[r['launches'] for r in runs]}")
         if consts:
             check(all(r["host_rescores"] > 0 for r in runs),
@@ -2164,7 +2482,11 @@ def run() -> int:
     t_start = time.perf_counter()
     smi, build_s = phase_device()
     bv_rows = phase_bv_common(dev)
-    lis_rows, cap = phase_lis(dev)
+    kept, cap = _capture_lists(dev)
+    gate_rows = phase_gate(dev, cap, bv_rows[0]["bound_ops_per_s"])
+    cap.gate, cap.absorb, cap.engine = [], [], None
+    lis_rows = phase_lis(dev, kept)
+    del kept            # the largest lists of the wave, ~2 GB on the card
     score_rows = phase_score_path(dev, cap)
     poa_rows = phase_poa(dev)
     step_rows = phase_step(dev)
@@ -2196,6 +2518,8 @@ def run() -> int:
                 "library_ms": row["library_ms"]}
 
     kernels_line = {"kernels": [
+        # phase 2's lone calls; on the main path its tile runs inside
+        # gate_block, so its launches there are 0
         record("bv_common", bv_rows[0], "rattle_tpu_torch/csrc/bv_common.cu",
                "rattle_tpu/ops/pallas_kernels.py:70"),
         record("lis_filter", lis_rows[0],
@@ -2218,6 +2542,14 @@ def run() -> int:
         record("greedy_owner", score_rows["greedy_owner"][0],
                "rattle_tpu_torch/csrc/greedy_owner.cu",
                "rattle_tpu/cluster/bulk.py:459"),
+        # the rest of the wave's programs (JAX's jitted gate_class_block
+        # and absorb_rest): the first wave's block, the first sweep tile
+        record("gate_block", gate_rows["gate_block"][0],
+               "rattle_tpu_torch/csrc/gate_block.cu",
+               "rattle_tpu/cluster/bulk.py:146"),
+        record("absorb_rest", gate_rows["absorb_rest"][0],
+               "rattle_tpu_torch/csrc/absorb_rest.cu",
+               "rattle_tpu/cluster/bulk.py:483"),
         # the read step after the alignment (the rest of JAX's jitted
         # _step), at the widest config's 64 lanes
         record("poa_thread", step_rows[4096][0],
@@ -2233,7 +2565,7 @@ def run() -> int:
                "rattle_tpu/ops/poa_device.py:49"),
     ]}
     report = dict(card=smi, build_s=build_s, bv_common=bv_rows,
-                  lis_filter=lis_rows, score_path=score_rows,
+                  gate=gate_rows, lis_filter=lis_rows, score_path=score_rows,
                   poa_align=poa_rows,
                   step_kernels={str(w): r for w, r in step_rows.items()},
                   main_path=main_res, correct_path=correct_res,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("bv_common", "lis_filter", "poa_align", "join_expand",
            "score_decide", "greedy_owner", "poa_thread", "poa_rerank",
-           "poa_align_batch")
+           "poa_align_batch", "gate_block", "absorb_rest")
 # csrc/mma_rate.cu, a probe of the tensor cores' rate that chip_smoke.py
 # builds beside the kernels (no path launches it)
 PROBES = ("mma_rate",)
@@ -33,8 +34,9 @@ PROBES = ("mma_rate",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# argtypes of each library's launch function (pointers and the stream as
-# c_void_p, so ctypes never cuts a 64-bit pointer to an int)
+# argtypes of each library's launch functions (pointers and the stream as
+# c_void_p, so ctypes never cuts a 64-bit pointer to an int): one (name,
+# argtypes) pair, or a tuple of them for a library of several kernels
 _SIGNATURES = {
     "bv_common": ("bv_common_launch", [_P, _P, _P, _I, _I, _P]),
     "lis_filter": ("lis_filter_launch",
@@ -51,6 +53,12 @@ _SIGNATURES = {
     "poa_rerank": ("poa_rerank_launch", [_P] * 16 + [_I] * 2 + [_P]),
     "poa_align_batch": ("poa_align_batch_launch",
                         [_P, _P, _I, _I, _P, _P, _P] + [_I] * 8 + [_P] * 5),
+    "gate_block": (("gate_tile_launch",
+                    [_P, _P, _I, _I] + [_P] * 10 + [_P, _L, _P, _I, _P, _I]
+                    + [_P] * 3),
+                   ("gate_emit_launch", [_P, _I, _I] + [_P] * 5
+                    + [_I] + [_P] * 3)),
+    "absorb_rest": ("absorb_rest_launch", [_P, _I, _I, _P, _P]),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 
@@ -67,11 +75,19 @@ def nvcc_path() -> str:
                        "built on the machine with the card")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
 def library_path(name: str) -> Tuple[str, str]:
-    """(source, library) paths of kernel ``name``."""
+    """(source, library) paths of kernel ``name``.  The library's name
+    hashes the source, the headers of csrc/ it includes and the flags."""
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        text = fh.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for header in _INCLUDE.findall(text):
+        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
+            digest.update(fh.read())
     so = f"lib{name}_{digest.hexdigest()[:16]}.so"
     return src, os.path.join(BUILD_DIR, so)
 
@@ -115,9 +131,11 @@ def load(name: str) -> ctypes.CDLL:
         if not os.path.exists(so):
             build([name])
         lib = ctypes.CDLL(so)
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        sigs = _SIGNATURES[name]
+        for fn_name, argtypes in (sigs,) if isinstance(sigs[0], str) \
+                else sigs:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib

@@ -14,29 +14,40 @@ loop (cluster.cpp:124-166) is replayed in O(N/K) decision waves:
   3. Absorbed reads leave the pool; repeat until empty.
 
 Per pair the decision is cluster.cpp:12-65: the bitvector gate
-(``kernels.bv_common``, an integer comparison against the f64-exact tables of
-ops/gates.py), the common-k-mer join (``kernels.join_expand``, reading the
-k-mer tables in place), the LIS + anchor filter + f32 variance
-(``kernels.lis_filter``) and the decision (``kernels.score_decide``): three
-launches a (class, tier) range of pairs, cut only where a launch's working
-set would pass LAUNCH_BYTES, where the JAX engine runs a route of fixed-size
-chunks as one jitted program.  The block replay is
-``kernels.greedy_owner``.  Work is routed
-count-first: one join at the first M tier both counts each pair's matches
-and decides the pairs that fit; the rest are cheap-rejected (bases <= k *
-matches) or scored at the smallest M tier that fits.  The merge rounds
-(cluster.cpp:171-256) run the same machinery over cluster representatives
-with the B->b->0 threshold schedule; a score cache (outcomes are
-threshold-independent) spares re-gated pairs.
+(``kernels.gate_block``: bv_common's tensor-core tile with the gate's tests
+against the f64-exact tables of ops/gates.py, the score cache's fold, the
+class routing and the compaction fused in), the common-k-mer join
+(``kernels.join_expand``, reading the k-mer tables in place), the LIS +
+anchor filter + f32 variance (``kernels.lis_filter``) and the decision
+(``kernels.score_decide``): three launches a (class, tier) range of pairs,
+cut only where a launch's working set would pass LAUNCH_BYTES, where the
+JAX engine runs a route of fixed-size chunks as one jitted program.  The
+block replay is ``kernels.greedy_owner``, the sweep's
+``kernels.absorb_rest``.  Work is routed count-first: one join at the first
+M tier both counts each pair's matches and decides the pairs that fit; the
+rest are cheap-rejected (bases <= k * matches) or scored at the smallest M
+tier that fits.  The merge rounds (cluster.cpp:171-256) run the same
+machinery over cluster representatives with the B->b->0 threshold
+schedule; a score cache (outcomes are threshold-independent) spares
+re-gated pairs.
 
 Exactness escapes, rescored on the host in f64 like the reference: a match
 count beyond the last M tier, and a variance within VAR_BAND_REL of t_v.
 
+The host reads the card as the JAX engine's wave does: per strand once
+after the gate (the class counts, which size the pair list and the tier-0
+launches) and once after ``tier_partition`` (its count matrix, which sizes
+the (class, tier) launches); per wave once at the end, one int32 vector of
+each strand's border flag and the replay (JAX's wave_summary).  Only a set
+flag makes it read more: the border pairs, and the replay again after their
+host rescore (JAX's _rare_paths).  ``host_reads``, ``rare_reads`` and
+``waves`` count them.
+
 Unlike the JAX engine this one has no static shapes: the gated pair list is
-sized exactly (``nonzero``), so there is no pair budget to overflow and redo,
-and waves are not padded to power-of-two buckets.  The decisions are the
-same; every scatter's indices are unique within its call, so plain masked
-index writes replace JAX's ``.at[].max(mode="drop")``.
+sized exactly (the gate's class counts), so there is no pair budget to
+overflow and redo, and waves are not padded to power-of-two buckets.  The
+decisions are the same; every scatter's indices are unique within its call,
+so plain masked index writes replace JAX's ``.at[].max(mode="drop")``.
 
 Mesh mode (``mesh=``, a parallel.launch.DataMesh): the JAX engine lets XLA's
 SPMD partitioner split its programs over the reads axis; here the split is
@@ -73,8 +84,9 @@ from ..device import resolve
 from ..io.hpsio import Cluster, CSeq
 from ..ops import gates
 from ..ops.encode import encode_seq
-from ..ops.kernels import (bv_common, greedy_owner, join_expand, lis_filter,
-                           score_decide, score_pair_bytes)
+from ..ops.kernels import (absorb_rest, gate_block, greedy_owner,
+                           join_expand, lis_filter, score_decide,
+                           score_pair_bytes)
 from ..ops.sketch import PAD_HASH
 from ..ops.sketch_device import (DeviceSketch, build_device_sketch,
                                  build_device_sketch_sharded)
@@ -116,42 +128,6 @@ def _pow2_at_least(n: int, lo: int) -> int:
 # --------------------------------------------------------------------------
 
 
-def gate_class_block(bvp_rows, bvc_rows, order_rows, group_rows,
-                     bvp_cols, bvc_cols, order_cols, group_cols, tab,
-                     cache, cache_n: int, row_ids, col_ids, w, strand_val: int,
-                     nk, bounds):
-    """Bitvector gate (cluster.cpp:13-19) + pair compaction + class routing.
-
-    Returns (rows, cols, class_counts): the FRESH gated pairs in row-major
-    order, stably sorted by K-class (pair max-nk against ``bounds``), and
-    the per-class counts on the host.  Cached wins are folded into ``w`` in
-    place and cached pairs (won or lost) are dropped from the list.
-
-    ``group_rows/cols``: pairs from different groups never gate -- this is
-    how --iso batches every gene cluster's sub-clustering into one pass."""
-    common = bv_common(bvp_rows, bvp_cols)
-    mmax = torch.maximum(bvc_rows[:, None], bvc_cols[None, :])
-    passed = (common >= tab[mmax]) \
-        & (order_rows[:, None] < order_cols[None, :]) \
-        & (group_rows[:, None] == group_cols[None, :])
-    rows, cols = torch.nonzero(passed, as_tuple=True)
-    ra = row_ids[rows]
-    rb = col_ids[cols]
-    if cache is not None:
-        cval = cache[ra * cache_n + rb]
-        # (row, col) pairs are unique, so a masked write is the scatter-max
-        cur = w[rows, cols]
-        w[rows, cols] = torch.where(cval == 2,
-                                    torch.clamp(cur, min=strand_val), cur)
-        fresh = cval == 0
-        rows, cols, ra, rb = rows[fresh], cols[fresh], ra[fresh], rb[fresh]
-    pair_nk = torch.maximum(nk[ra], nk[rb])
-    cls = (pair_nk[:, None] > bounds[None, :]).sum(dim=1)
-    cls, order = torch.sort(cls, stable=True)
-    counts = torch.bincount(cls, minlength=bounds.shape[0] + 1)
-    return rows[order], cols[order], counts.tolist()
-
-
 def launch_pairs(n: int, pair_bytes: int) -> int:
     """Pairs a score-path launch takes from a range of ``n``: as many as
     fit LAUNCH_BYTES at ``pair_bytes`` a pair, at least 1."""
@@ -165,9 +141,9 @@ def tier_partition(cnt, pair_cls, lens_min, sc_tab, m_caps: Tuple[int, ...],
     Per pair: tier key 0 = no further work (decided in tier 0, or cheap
     reject -- bases <= k * matches can never reach the score threshold),
     1..T-1 = smallest fitting M tier, T = overflow (exact host scorer).
-    Returns (order, counts [n_classes, T+1] on the host): ``order`` sorts
-    the pairs stably by (class, tier, match count), so every route is a
-    contiguous, count-homogeneous slice (tight LIS bounds)."""
+    Returns (order, counts [n_classes, T+1] int32), both on the device:
+    ``order`` sorts the pairs stably by (class, tier, match count), so every
+    route is a contiguous, count-homogeneous slice (tight LIS bounds)."""
     t = len(m_caps)
     reject = kmer_size * cnt < sc_tab[lens_min]
     tier = torch.zeros_like(cnt)
@@ -176,21 +152,13 @@ def tier_partition(cnt, pair_cls, lens_min, sc_tab, m_caps: Tuple[int, ...],
     tierkey = torch.where((tier == 0) | reject, 0, tier)
     key = pair_cls * (t + 1) + tierkey
     comp = key.to(torch.int64) * 2048 + torch.clamp(cnt, max=2047)
-    order = torch.sort(comp, stable=True).indices
-    counts = torch.bincount(key, minlength=n_classes * (t + 1))
-    return order, np.asarray(counts.tolist()).reshape(n_classes, t + 1)
-
-
-def absorb_rest(w: torch.Tensor) -> torch.Tensor:
-    """Sweep-phase absorption: each column joins the EARLIEST winning seed
-    row (first-claim, cluster.cpp:141-150).  w [S, C] int8.  Returns packed
-    [C] int32 = (seed_row << 1) | rev, or -1."""
-    has = w > 0
-    first = torch.argmax(has.to(torch.uint8), dim=0)   # first max index
-    won = has.any(dim=0)
-    val = torch.gather(w, 0, first[None, :])[0]
-    packed = (first.to(torch.int32) << 1) | (val == 1).to(torch.int32)
-    return torch.where(won, packed, -1)
+    comp, order = torch.sort(comp, stable=True)
+    # each key's count from where its run starts in the sorted list (an
+    # index_add_ of ones contends on a few addresses; bincount syncs)
+    starts = torch.searchsorted(comp, torch.arange(
+        n_classes * (t + 1) + 1, device=comp.device) * 2048)
+    counts = (starts[1:] - starts[:-1]).to(torch.int32)
+    return order, counts.reshape(n_classes, t + 1)
 
 
 @dataclasses.dataclass
@@ -210,6 +178,23 @@ class _Sides:
     bvp_rows: torch.Tensor
     bvc_rows: torch.Tensor
     row_tables: object      # cls_i -> (hs, ps) forward tables of the rows
+
+
+@dataclasses.dataclass
+class _Strand:
+    """One strand's gated pairs after scoring, on the device: the tier-0
+    list (rows, cols) with its border flags, the same pairs in
+    tier_partition's order (srows, scols) with the later tiers' border and
+    overflow flags, and ``flag``, int32 [1]: any of them set."""
+
+    rev: bool
+    rows: torch.Tensor
+    cols: torch.Tensor
+    border: torch.Tensor
+    srows: torch.Tensor
+    scols: torch.Tensor
+    sborder: torch.Tensor
+    flag: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -375,8 +360,17 @@ class BulkClusterEngine:
             else np.asarray(groups, np.int32)
         self._groups_dev = torch.from_numpy(self.groups).to(self.device)
         # wall-clock per phase (greedy, merge) and per wave section (gate,
-        # score, rescore, replay; rows on a mesh), accumulated by cluster()
+        # score, rescore, replay; rows on a mesh), accumulated by cluster();
+        # on the card also each section's device time (gate_dev, ...)
         self.phase_times: Dict[str, float] = {}
+        # device->host reads: of the waves' fixed schedule, of the rare
+        # paths, and the most one wave made outside the rare paths
+        self.waves = 0
+        self.host_reads = 0
+        self.rare_reads = 0
+        self.wave_reads_max = 0
+        self._wave_reads = 0
+        self._marks: List[Tuple[Optional[str], object]] = []
 
     @property
     def is_writer(self) -> bool:
@@ -513,7 +507,7 @@ class BulkClusterEngine:
         Each launch's bound (its largest match count within m_cap, where the
         LIS scans stop: exact) starts at 0.
 
-        The pairs of a range are unique (``nonzero``), and so are their read
+        The pairs of a range are unique (the gate's), and so are their read
         pairs, so no write of one launch is read by another: where the range
         is cut does not change any output."""
         hs_a, ps_a = s.row_tables(cls_i)
@@ -548,10 +542,13 @@ class BulkClusterEngine:
               threshold: float, ordered: bool,
               tables: Optional[_RowTables] = None) -> np.ndarray:
         """One decision wave: every (row, col) pair decided into a win
-        matrix ``w`` (``_decide``), then the rare paths (borderline
-        variance, match-count overflow: exact host rescore patched into
-        ``w``) and the replay (greedy_owner for an ordered block,
-        absorb_rest for a sweep).
+        matrix ``w`` (``_decide``), the replay (greedy_owner for an ordered
+        block, absorb_rest for a sweep) and ONE fetch: each strand's border
+        flag and the replay in one int32 vector (JAX's wave_summary).  Only
+        a set flag takes the rare path (JAX's _rare_paths): the border pairs
+        (borderline variance, match-count overflow) are fetched, rescored on
+        the host in f64 and patched into ``w``, and the replay runs and is
+        fetched again.
 
         ``ordered``: rows/cols are the same greedy-ordered list (block
         phase) -- only pairs with row position < col position are tested.
@@ -574,27 +571,41 @@ class BulkClusterEngine:
                    lambda i: (self._cls_tabs[i]["hs"],
                               self._cls_tabs[i]["ps"]))
         w = torch.zeros((a, len(col_ids)), dtype=torch.int8, device=dev)
-        host_jobs = self._decide(s, threshold, ordered, w)
+        strands = self._decide(s, threshold, ordered, w)
         t0 = time.perf_counter()
-        if host_jobs:
-            self._patch_host(w, host_jobs)
-            t0 = self._tick("rescore", t0)
         replay = greedy_owner(w, a) if ordered else absorb_rest(w)
-        packed = replay.cpu().numpy()
-        self._tick("replay", t0)
+        n_s = len(strands)
+        summary = torch.cat([st.flag for st in strands] + [replay]) \
+            if strands else replay
+        self._mark("replay")
+        got = self._read(summary).numpy()
+        packed = got[n_s:]
+        t0 = self._tick("replay", t0)
+        flagged = [st for st, f in zip(strands, got[:n_s]) if f]
+        if flagged:
+            if self._patch_host(w, self._border_jobs(s, flagged, rare=True)):
+                self._mark("rescore")
+                replay = greedy_owner(w, a) if ordered else absorb_rest(w)
+                self._mark("replay")
+                packed = self._read(replay, rare=True).numpy()
+            self._tick("rescore", t0)
+        self._end_wave()
         return packed
 
     def _decide(self, s: _Sides, threshold: float, ordered: bool,
-                w: torch.Tensor) -> List[Tuple[bool, int, int, int, int]]:
+                w: torch.Tensor) -> List[_Strand]:
         """Every pair of ``s`` decided into ``w`` [rows, cols], per strand:
 
-          gate_class_block: gate + compaction + class sort
+          gate_block: gate + cache fold + class routing + compaction, then
+            the read of its class counts
           tier-0 pass x class: match counts + decisions of the pairs that fit
-          tier_partition: cheap-reject + M-tier routing of the rest
+          tier_partition: cheap-reject + M-tier routing of the rest, then
+            the read of its count matrix
           score pass x (class, tier): the remaining decisions
 
-        Returns the host-rescore jobs (rev, a, b, row, col): borderline
-        variance and match-count overflow."""
+        Returns each strand that gated a fresh pair, its border flags on the
+        device (``_Strand``): borderline variance and match-count overflow,
+        for the host rescore."""
         sk = self.sk
         dev = self.device
         a = s.row_ids.shape[0]
@@ -604,49 +615,55 @@ class BulkClusterEngine:
         group_cols = self._groups_dev[s.col_ids]
         bvc_cols = sk.bvc[s.col_tab]
         if ordered:
-            order_rows = torch.arange(a, device=dev)
-            order_cols = torch.from_numpy(s.col_pos.astype(np.int64)).to(dev)
+            order_rows = torch.arange(a, dtype=torch.int32, device=dev)
+            order_cols = torch.from_numpy(s.col_pos.astype(np.int32)).to(dev)
         else:
-            order_rows = torch.zeros(a, dtype=torch.int64, device=dev)
-            order_cols = torch.ones(c, dtype=torch.int64, device=dev)
+            order_rows = torch.zeros(a, dtype=torch.int32, device=dev)
+            order_cols = torch.ones(c, dtype=torch.int32, device=dev)
         consts = (torch.tensor(self.p.t_v, dtype=torch.float32, device=dev),
                   torch.tensor(float(self.var_band), dtype=torch.float32,
                                device=dev))
         t_lad = len(self.m_ladder)
         m0 = self.m_ladder[0]
 
-        host_jobs: List[Tuple[bool, int, int, int, int]] = []
+        out: List[_Strand] = []
         strands = [False] if self.p.is_rna else [False, True]
+        self._mark(None)
         for rev in strands:
             t0 = time.perf_counter()
             bvp_cols = (sk.rev_bvp if rev else sk.bvp)[s.col_tab]
-            rows, cols, cls_counts = gate_class_block(
+            rows, cols, cls_dev, cls_counts = gate_block(
                 s.bvp_rows, s.bvc_rows, order_rows, group_rows,
                 bvp_cols, bvc_cols, order_cols, group_cols, tab,
                 self._cache[rev], self.cache_n, s.row_ids, s.col_ids, w,
                 1 if rev else 2, self.nk, self._bounds_dev)
+            self._count_read()
+            self._mark("gate")
             t0 = self._tick("gate", t0)
-            if rows.shape[0] == 0:
+            n = rows.shape[0]
+            if n == 0:
                 continue
             # tier 0: one join per pair counts its matches and decides it
             # when they fit the first M tier
-            starts = np.cumsum([0] + cls_counts)
+            starts = np.cumsum((0,) + cls_counts)
             first = [self._score_range(
                 rows[starts[i]:starts[i + 1]], cols[starts[i]:starts[i + 1]],
                 i, m0, s, rev, w, consts)
                 for i in range(self.n_classes) if cls_counts[i]]
-            borders = [(rows, cols, torch.cat([b for b, _ in first]))]
+            border = torch.cat([b for b, _ in first])
             cnt = torch.cat([t for _, t in first])
             ra = s.row_ids[rows]
             rb = s.col_ids[cols]
             pair_cls = torch.repeat_interleave(
-                torch.arange(self.n_classes, device=dev),
-                torch.tensor(cls_counts, device=dev))
+                torch.arange(self.n_classes, device=dev), cls_dev,
+                output_size=n)
             order, counts = tier_partition(
                 cnt, pair_cls, torch.minimum(self.lens[ra], self.lens[rb]),
                 self.score_min, self.m_ladder, self.p.kmer_size,
                 self.n_classes)
             srows, scols = rows[order], cols[order]
+            sborder = torch.zeros(n, dtype=torch.bool, device=dev)
+            counts = self._read(counts).numpy()
             off = 0
             for cls_i in range(self.n_classes):
                 for tier_i in range(t_lad + 1):
@@ -657,19 +674,34 @@ class BulkClusterEngine:
                         continue  # tier 0: decided or rejected above
                     if tier_i == t_lad:
                         # match-count overflow beyond the last tier: host f64
-                        border = torch.ones(n_r, dtype=torch.bool, device=dev)
+                        sborder[sl] = True
                     else:
-                        border, _ = self._score_range(
+                        sborder[sl] = self._score_range(
                             srows[sl], scols[sl], cls_i,
-                            self.m_ladder[tier_i], s, rev, w, consts)
-                    borders.append((srows[sl], scols[sl], border))
-            r_all, c_all, m_all = (torch.cat(x) for x in zip(*borders))
-            sel = torch.nonzero(m_all).flatten()
-            for rr, cc in zip(r_all[sel].tolist(), c_all[sel].tolist()):
-                host_jobs.append((rev, int(s.row_np[rr]), int(s.col_np[cc]),
-                                  rr, cc))
+                            self.m_ladder[tier_i], s, rev, w, consts)[0]
+            flag = (border.any() | sborder.any()).to(torch.int32).reshape(1)
+            out.append(_Strand(rev, rows, cols, border, srows, scols,
+                               sborder, flag))
+            self._mark("score")
             self._tick("score", t0)
-        return host_jobs
+        return out
+
+    def _border_jobs(self, s: _Sides, strands: List[_Strand],
+                     rare: bool = False
+                     ) -> List[Tuple[bool, int, int, int, int]]:
+        """The host-rescore jobs (rev, a, b, row, col) of ``strands``: their
+        border pairs, fetched in one read a strand."""
+        jobs: List[Tuple[bool, int, int, int, int]] = []
+        for st in strands:
+            sel = torch.nonzero(st.border).flatten()
+            ssel = torch.nonzero(st.sborder).flatten()
+            pairs = self._read(torch.stack([
+                torch.cat([st.rows[sel], st.srows[ssel]]),
+                torch.cat([st.cols[sel], st.scols[ssel]])]), rare=rare)
+            for rr, cc in pairs.T.tolist():
+                jobs.append((st.rev, int(s.row_np[rr]), int(s.col_np[cc]),
+                             rr, cc))
+        return jobs
 
     def _assemble_rows(self, row_ids: np.ndarray) -> _RowTables:
         """The forward tables and 6-mer words of reads ``row_ids`` on every
@@ -711,7 +743,8 @@ class BulkClusterEngine:
                    tables: Optional[_RowTables]) -> np.ndarray:
         """``_wave`` on a mesh: this rank decides the columns it owns, the
         replay runs on every rank from the allgathered decisions.  The
-        collectives do not depend on this rank's share of the pairs."""
+        collectives do not depend on this rank's share of the pairs, nor on
+        its border flags: each rank reads its border pairs every wave."""
         dev = self.device
         a = len(row_ids)
         t0 = time.perf_counter()
@@ -729,7 +762,8 @@ class BulkClusterEngine:
             s = _Sides(row_ids, own, col_pos, d_rows, d_own,
                        torch.arange(a, device=dev), d_own - self.row0,
                        tables.bvp, tables.bvc, tables)
-            host_jobs = self._decide(s, threshold, ordered, w)
+            host_jobs = self._border_jobs(
+                s, self._decide(s, threshold, ordered, w))
         t0 = time.perf_counter()
         if self.seqs is None:
             # fetch the rescores' reads that other ranks own: the union of
@@ -745,41 +779,83 @@ class BulkClusterEngine:
         t0 = self._tick("rescore", t0)
         order = np.argsort(owner, kind="stable")
         if ordered:
-            got = launch.allgather_to_hosts(w.T.contiguous().cpu().numpy())
+            got = launch.allgather_to_hosts(self._read(w.T.contiguous())
+                                            .numpy())
             full = np.empty((len(col_ids), a), np.int8)
             full[order] = got
             replay = greedy_owner(torch.from_numpy(full.T.copy()).to(dev), a)
-            packed = replay.cpu().numpy()
+            packed = self._read(replay).numpy()
         else:
-            mine = absorb_rest(w).cpu().numpy() if len(own) \
+            mine = self._read(absorb_rest(w)).numpy() if len(own) \
                 else np.zeros(0, np.int32)
             packed = np.empty(len(col_ids), np.int32)
             packed[order] = launch.allgather_to_hosts(mine)
         self._tick("replay", t0)
+        self._end_wave()
         return packed
 
     def _tick(self, name: str, t0: float) -> float:
         """Add the host time since ``t0`` to phase ``name``; returns now.
-        Every section ends in a device->host read, so the host time covers
-        the section's device work too."""
+        A section's host time covers the device work it waits for: the gate
+        ends in the read of its class counts, the replay in the wave's one
+        fetch, which also waits for the score work still queued.  The device
+        time of each section is kept apart (``_mark``)."""
         now = time.perf_counter()
         self.phase_times[name] = self.phase_times.get(name, 0.0) + now - t0
         return now
 
-    def _patch_host(self, w, host_jobs) -> None:
+    def _mark(self, name: Optional[str]) -> None:
+        """On the card, record a timing event that ends section ``name``
+        (None: the wave's first mark); the span since the previous mark is
+        added to ``phase_times[name + "_dev"]`` when the wave ends.  Each
+        wave's last mark precedes one of its reads, so every event has
+        completed by then: no sync is added.  Nothing on the CPU."""
+        if self.device.type != "cuda":
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._marks.append((name, ev))
+
+    def _read(self, x: torch.Tensor, rare: bool = False) -> torch.Tensor:
+        """``x`` fetched to the host, counted as a read of the wave's
+        schedule or (``rare``) of a rare path."""
+        if rare:
+            self.rare_reads += 1
+        else:
+            self._count_read()
+        return x.cpu()
+
+    def _count_read(self) -> None:
+        self.host_reads += 1
+        self._wave_reads += 1
+
+    def _end_wave(self) -> None:
+        """Close the wave: its read count and its sections' device time."""
+        self.waves += 1
+        self.wave_reads_max = max(self.wave_reads_max, self._wave_reads)
+        self._wave_reads = 0
+        for (_n0, e0), (name, e1) in zip(self._marks, self._marks[1:]):
+            key = name + "_dev"
+            self.phase_times[key] = self.phase_times.get(key, 0.0) + \
+                e0.elapsed_time(e1) / 1e3
+        self._marks.clear()
+
+    def _patch_host(self, w, host_jobs) -> bool:
         """Borderline-variance and match-count-overflow pairs: exact f64
-        host rescore (cluster.cpp exactness contract), patched into w."""
+        host rescore (cluster.cpp exactness contract), patched into w.
+        Returns whether any pair won."""
         best: Dict[Tuple[int, int], int] = {}
         for rev, _a, _b, r_, c_, ok in self._host_rescore_batch(host_jobs):
             if ok:
                 val = 1 if rev else 2
                 best[(r_, c_)] = max(best.get((r_, c_), 0), val)
         if not best:
-            return
+            return False
         arr = torch.tensor([(r_, c_, v) for (r_, c_), v in best.items()],
                            dtype=torch.int64, device=w.device)
         cur = w[arr[:, 0], arr[:, 1]]
         w[arr[:, 0], arr[:, 1]] = torch.maximum(cur, arr[:, 2].to(torch.int8))
+        return True
 
     # ---------- frontier greedy ----------
 
@@ -911,9 +987,10 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
     ``mesh``: decide over the ranks of a parallel.launch.DataMesh, every
     rank calling this with the same reads; each returns the same clusters.
 
-    Phase times and the host-rescore count are added to
-    ``utils.metrics.GLOBAL`` (stages ``cluster.greedy``/``cluster.merge``,
-    counter ``cluster.host_rescores``)."""
+    Phase times and counts are added to ``utils.metrics.GLOBAL`` (stages
+    ``cluster.greedy``/``cluster.merge`` and the wave sections, counters
+    ``cluster.host_rescores``, ``cluster.waves``, ``cluster.host_reads``,
+    ``cluster.rare_reads`` and ``cluster.wave_reads_max``)."""
     if len(seqs) < ORACLE_CUTOVER:
         if groups is None:
             return oracle.cluster_reads(seqs, params, progress=progress)
@@ -959,4 +1036,10 @@ def run_engine(engine: BulkClusterEngine) -> List[Cluster]:
             metrics.GLOBAL.stages.get("cluster." + name, 0.0) + secs
     metrics.GLOBAL.add("cluster.host_rescores", engine.n_oracle_fallbacks)
     metrics.GLOBAL.add("cluster.remote_reads", engine.n_remote_reads)
+    metrics.GLOBAL.add("cluster.waves", engine.waves)
+    metrics.GLOBAL.add("cluster.host_reads", engine.host_reads)
+    metrics.GLOBAL.add("cluster.rare_reads", engine.rare_reads)
+    c = metrics.GLOBAL.counters
+    c["cluster.wave_reads_max"] = max(c.get("cluster.wave_reads_max", 0),
+                                      engine.wave_reads_max)
     return out

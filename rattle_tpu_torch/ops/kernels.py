@@ -18,6 +18,11 @@ jitted programs that ran as eager launch chains:
 * ``score_decide`` -- csrc/score_decide.cu: the decision half of _score_body.
 * ``greedy_owner`` -- csrc/greedy_owner.cu: rattle_tpu/cluster/bulk.py::
   greedy_owner, the block replay.
+* ``gate_block``   -- csrc/gate_block.cu (two passes; bv_common's tile from
+  csrc/bv_tile.cuh): rattle_tpu/cluster/bulk.py::gate_class_block, the
+  gate with its cache fold, class routing and pair compaction.
+* ``absorb_rest``  -- csrc/absorb_rest.cu: rattle_tpu/cluster/bulk.py::
+  absorb_rest, the sweep replay.
 
 and the two kernels of ``correct``'s read step after ``poa_align``, the rest
 of rattle_tpu/correct/pack_engine.py::_step:
@@ -1310,8 +1315,182 @@ def greedy_owner(w: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 greedy_owner.launches = 0
 
+
+# --------------------------------------------------------------------------
+# cluster's decision wave: the gate, and the sweep replay
+# --------------------------------------------------------------------------
+
+# K classes the gate routes to (csrc/gate_block.cu packs a class's count of
+# a (row, 128-column tile) into eight bits, four classes a word)
+GATE_MAX_CLASSES = 4
+
+
+def gate_block_plain(bvp_rows, bvc_rows, order_rows, group_rows, bvp_cols,
+                     bvc_cols, order_cols, group_cols, tab, cache,
+                     cache_n: int, row_ids, col_ids, w, strand_val: int, nk,
+                     bounds, common=bv_common_plain):
+    """Plain version: the eager chain the wave ran before the kernel, on
+    ``common`` (bv_common_plain; bv_common gives that earlier path on the
+    card).  Same arguments, outputs and effect on ``w`` as ``gate_block``."""
+    cmn = common(bvp_rows, bvp_cols)
+    mmax = torch.maximum(bvc_rows[:, None], bvc_cols[None, :])
+    passed = (cmn >= tab[mmax]) \
+        & (order_rows[:, None] < order_cols[None, :]) \
+        & (group_rows[:, None] == group_cols[None, :])
+    rows, cols = torch.nonzero(passed, as_tuple=True)
+    ra = row_ids[rows]
+    rb = col_ids[cols]
+    if cache is not None:
+        cval = cache[ra * cache_n + rb]
+        # (row, col) pairs are unique, so a masked write is the scatter-max
+        cur = w[rows, cols]
+        w[rows, cols] = torch.where(cval == 2,
+                                    torch.clamp(cur, min=strand_val), cur)
+        fresh = cval == 0
+        rows, cols, ra, rb = rows[fresh], cols[fresh], ra[fresh], rb[fresh]
+    pair_nk = torch.maximum(nk[ra], nk[rb])
+    cls = (pair_nk[:, None] > bounds[None, :]).sum(dim=1)
+    cls, order = torch.sort(cls, stable=True)
+    class_counts = torch.bincount(cls, minlength=bounds.shape[0] + 1).to(
+        torch.int32)
+    return rows[order], cols[order], class_counts, \
+        tuple(class_counts.tolist())
+
+
+def gate_block(bvp_rows: torch.Tensor, bvc_rows: torch.Tensor,
+               order_rows: torch.Tensor, group_rows: torch.Tensor,
+               bvp_cols: torch.Tensor, bvc_cols: torch.Tensor,
+               order_cols: torch.Tensor, group_cols: torch.Tensor,
+               tab: torch.Tensor, cache: Optional[torch.Tensor], cache_n: int,
+               row_ids: torch.Tensor, col_ids: torch.Tensor, w: torch.Tensor,
+               strand_val: int, nk: torch.Tensor, bounds: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          Tuple[int, ...]]:
+    """The bitvector gate of A rows x C columns (cluster.cpp:13-19): a pair
+    passes when popcount(bvp_row AND bvp_col) >= tab[max(bvc_row, bvc_col)],
+    order_row < order_col and group_row == group_col.  A passing pair whose
+    score cache entry cache[row_id * cache_n + col_id] is 2 folds strand_val
+    into w (w = max(w, strand_val), in place); one whose entry is 0, or every
+    passing pair when ``cache`` is None, is fresh.  A fresh pair's class is
+    #(bounds < max(nk[row_id], nk[col_id])).
+
+    bvp_* [*, 128] int32 packed words; bvc_*, order_*, group_* int32 and
+    row_ids / col_ids int64 (global read ids) [A] / [C]; tab int32 [4097];
+    cache uint8 [cache_n^2] or None; w int8 [A, C]; nk int32 by read id;
+    bounds int32 [n_classes - 1], n_classes <= GATE_MAX_CLASSES.
+
+    Returns (rows, cols [total] int64, class_counts [n_classes] int32), on
+    the device: the fresh pairs stably sorted by class, row-major within a
+    class; and the same class counts as the host read them (a tuple), the
+    one read the gate makes.  On the card: two launches with that read
+    between them (it sizes rows and cols), no [A, C] intermediate."""
+    dev = w.device
+    a, c = bvp_rows.shape[0], bvp_cols.shape[0]
+    _check("gate_block bvp_rows", bvp_rows, torch.int32, 2, dev, BV_WORDS)
+    _check("gate_block bvp_cols", bvp_cols, torch.int32, 2, dev, BV_WORDS)
+    for side, n, vecs in (("rows", a, (bvc_rows, order_rows, group_rows)),
+                          ("cols", c, (bvc_cols, order_cols, group_cols))):
+        for name, t in zip(("bvc", "order", "group"), vecs):
+            _check(f"gate_block {name}_{side}", t, torch.int32, 1, dev, n)
+    _check("gate_block row_ids", row_ids, torch.int64, 1, dev, a)
+    _check("gate_block col_ids", col_ids, torch.int64, 1, dev, c)
+    _check("gate_block tab", tab, torch.int32, 1, dev, BV_BITS + 1)
+    _check("gate_block w", w, torch.int8, 2, dev, c)
+    if w.shape[0] != a:
+        raise ValueError(f"gate_block: w is {tuple(w.shape)}, rows x cols "
+                         f"are {a} x {c}")
+    _check("gate_block nk", nk, torch.int32, 1, dev)
+    _check("gate_block bounds", bounds, torch.int32, 1, dev)
+    if bounds.shape[0] >= GATE_MAX_CLASSES:
+        raise ValueError(f"gate_block: {bounds.shape[0] + 1} classes, at "
+                         f"most {GATE_MAX_CLASSES}")
+    if cache is not None:
+        _check("gate_block cache", cache, torch.uint8, 1, dev)
+        if cache.shape[0] < cache_n * cache_n:
+            raise ValueError(f"gate_block: cache has {cache.shape[0]} "
+                             f"entries, needs {cache_n * cache_n}")
+    if not _on_card(w):
+        return gate_block_plain(bvp_rows, bvc_rows, order_rows, group_rows,
+                                bvp_cols, bvc_cols, order_cols, group_cols,
+                                tab, cache, cache_n, row_ids, col_ids, w,
+                                strand_val, nk, bounds)
+    if bvp_rows.data_ptr() % 16 or bvp_cols.data_ptr() % 16:
+        raise ValueError("gate_block: rows must be 16-byte aligned (cp.async "
+                         "of 16-byte units)")
+    n_cls = bounds.shape[0] + 1
+    if a == 0 or c == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, empty.clone(), torch.zeros(
+            n_cls, dtype=torch.int32, device=dev), (0,) * n_cls
+    n_words, n_tiles = -(-c // 32), -(-c // 128)
+    mask = torch.empty((a, n_words), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_cls, a, n_tiles), dtype=torch.int32, device=dev)
+    lib = _ext.load("gate_block")
+    stream = _stream(dev)
+    _raise_on(lib.gate_tile_launch(
+        bvp_rows.data_ptr(), bvp_cols.data_ptr(), a, c, bvc_rows.data_ptr(),
+        bvc_cols.data_ptr(), order_rows.data_ptr(), order_cols.data_ptr(),
+        group_rows.data_ptr(), group_cols.data_ptr(), row_ids.data_ptr(),
+        col_ids.data_ptr(), nk.data_ptr(), tab.data_ptr(),
+        None if cache is None else cache.data_ptr(), cache_n, w.data_ptr(),
+        strand_val, bounds.data_ptr(), n_cls - 1, mask.data_ptr(),
+        counts.data_ptr(), stream), "gate_block")
+    gate_block.launches += 1
+    flat = counts.reshape(-1)
+    offsets = torch.cumsum(flat, 0, dtype=torch.int32) - flat
+    class_counts = counts.reshape(n_cls, -1).sum(1, dtype=torch.int32)
+    n_class = tuple(class_counts.tolist())      # the one host read
+    total = sum(n_class)
+    rows = torch.empty(total, dtype=torch.int64, device=dev)
+    cols = torch.empty(total, dtype=torch.int64, device=dev)
+    if total:
+        _raise_on(lib.gate_emit_launch(
+            mask.data_ptr(), a, c, offsets.data_ptr(), row_ids.data_ptr(),
+            col_ids.data_ptr(), nk.data_ptr(), bounds.data_ptr(), n_cls - 1,
+            rows.data_ptr(), cols.data_ptr(), stream), "gate_block")
+    return rows, cols, class_counts, n_class
+
+
+gate_block.launches = 0
+
+
+def absorb_rest_plain(w: torch.Tensor) -> torch.Tensor:
+    """Plain version: the eager chain the sweep ran before the kernel."""
+    has = w > 0
+    first = torch.argmax(has.to(torch.uint8), dim=0)   # first max index
+    won = has.any(dim=0)
+    val = torch.gather(w, 0, first[None, :])[0]
+    packed = (first.to(torch.int32) << 1) | (val == 1).to(torch.int32)
+    return torch.where(won, packed, -1)
+
+
+def absorb_rest(w: torch.Tensor) -> torch.Tensor:
+    """Sweep-phase absorption: each column joins the EARLIEST winning seed
+    row (first-claim, cluster.cpp:141-150).  w [S, C] int8.  Returns packed
+    [C] int32 = (seed_row << 1) | rev, or -1.  One launch, a thread a
+    column."""
+    dev = w.device
+    _check("absorb_rest w", w, torch.int8, 2, dev)
+    s, c = w.shape
+    if s >= 2 ** 30:
+        raise ValueError(f"absorb_rest: {s} rows, the packing takes < 2^30")
+    if not _on_card(w):
+        return absorb_rest_plain(w)
+    out = torch.empty((c,), dtype=torch.int32, device=dev)
+    if c == 0:
+        return out
+    fn = _ext.load("absorb_rest").absorb_rest_launch
+    _raise_on(fn(w.data_ptr(), s, c, out.data_ptr(), _stream(dev)),
+              "absorb_rest")
+    absorb_rest.launches += 1
+    return out
+
+
+absorb_rest.launches = 0
+
 _KERNELS = (bv_common, lis_filter, poa_align, join_expand, score_decide,
-            greedy_owner, poa_thread, poa_rerank, poa_align_batch)
+            greedy_owner, poa_thread, poa_rerank, poa_align_batch,
+            gate_block, absorb_rest)
 
 
 def reset_launches() -> None:

@@ -202,6 +202,16 @@ def test_replays_match_jax():
     np.testing.assert_array_equal(
         tbulk.absorb_rest(torch.from_numpy(w)).numpy(),
         np.asarray(jbulk.absorb_rest(jnp.asarray(w))))
+    # absorb_rest's plain version (the kernel's, on the card) on a column
+    # won only by its last row, an empty column, one row, and dense wins
+    from rattle_tpu_torch.ops import kernels
+    last = np.zeros((50, 7), np.int8)
+    last[-1, 2], last[-1, 4], last[10, 5] = 1, 2, 2
+    for w in (last, np.zeros((8, 5), np.int8), w[:1],
+              rng.choice(np.array([0, 1, 2], np.int8), (300, 40))):
+        np.testing.assert_array_equal(
+            kernels.absorb_rest_plain(torch.from_numpy(w)).numpy(),
+            np.asarray(jbulk.absorb_rest(jnp.asarray(w))))
 
 
 def test_greedy_owner_plain_matches_jax_full_block():
