@@ -12,20 +12,25 @@ Phases, each ending in one summary line:
   2. bv_common against its plain version, exactly, at the main path's
      shapes and at ragged sizes off the 128 x 128 block tile, with
      CUDA-event times, the bf16 matmul yardstick and the share of the bound,
-     whose 1-bit rate is the int8 peak scaled by the b1 / s8 ratio of
-     register-only mma.sync loops timed in this run;
- 2b. gate_block (the wave's gate: bv_common's tile with the tests, the
-     cache fold, class routing and compaction) and absorb_rest (the sweep
-     replay) against their plain versions, exactly (rows, cols, class
+     whose 1-bit rate is the fastest timed in this run: the int8 peak
+     scaled by the b1 / s8 ratio of register-only mma.sync loops, or a loop
+     of wgmma .b1 from shared memory;
+ 2b. gate_block (the wave's gate: bv_common's product, on wgmma, with the
+     tests, cache fold, class routing and compaction) and absorb_rest (the
+     sweep replay) against their plain versions, exactly (rows, cols, class
      counts and w; the packed replay): on the main path's first block
      wave and first sweep wave (captured by the same _ScoreCapture as
      phase 3b, below), with a score cache of random 0/1/2, the cache off,
      --iso groups, the reverse strand, a table that passes nothing,
-     threshold 0 and ragged shapes; timed at the block and at two sweep
-     tiles beside the parent's path (bv_common and the eager chain) and
-     the plain version, each beside its bound (bit products at phase 2's
-     1-bit rate, or the bytes it counts), absorb_rest on the sweep's win
-     matrix and a random 4,096 x 4,096 one;
+     threshold 0, ragged shapes and the 4,096 x 65,536 sweep tile of every
+     wave above 65,536 reads; timed at the block, at two sweep tiles and at
+     that tile (pipeline/profile_gate.py: the lone call, the device time of
+     a call without the host read's copy from the profiler's trace, the
+     split of a call into pass 1, the work between the passes, the read's
+     copy and wait, pass 2 and the host, and the launch plan) beside the
+     plain version and its bound (bit products at phase 2's 1-bit rate, or
+     the bytes it counts), absorb_rest on the sweep's win matrix, a random
+     4,096 x 4,096 one and that tile's (lone, device a launch, plan);
   3. lis_filter against its plain version (bases, hc and n_dist exactly,
      var to rtol 1e-5 with the same infinities): on synthetic lists at the
      three tiers' JAX chunk shapes and on the whole largest launch of each
@@ -83,7 +88,7 @@ Phases, each ending in one summary line:
      (``kernels.lis_filter.shapes``), beside the run's peak device memory,
      its sections' host and device times and its host reads (at most two
      a strand and one a wave outside the rare paths, checked; bv_common
-     never launches: its tile runs inside gate_block); the ``--rna`` and
+     never launches: its product runs inside gate_block); the ``--rna`` and
      cDNA runs again under torch.profiler for their CUDA launch calls,
      synchronising calls, device busy time and idle share; and each of the
      three again with the wave's five wrappers (gate, score path, both
@@ -259,25 +264,33 @@ def _random_words(p: int, density: float, dev, seed: int) -> torch.Tensor:
 
 BV_RAGGED = ((1000, 777), (1, 129), (15, 1), (129, 15), (1, 1))
 MMA_CHAINS = 8          # accumulator chains a warp in csrc/mma_rate.cu
+WGMMA_BATCH = 4         # wgmmas an iteration a warpgroup there
 
 
 def _b1_peak(dev):
-    """ops/s a bound on 1-bit MMAs assumes: the published int8 peak times
-    the ratio of the rates at which register-only loops of mma.sync .b1
-    (m16n8k256) and .s8 (m16n8k32) run on every SM of this card, at least
-    the int8 peak.  Returns (peak, {"b1": ops/s, "s8": ops/s})."""
+    """ops/s a bound on 1-bit MMAs assumes: the fastest 1-bit rate measured
+    here, the larger of the published int8 peak times the ratio of the
+    rates at which register-only loops of mma.sync .b1 (m16n8k256) and .s8
+    (m16n8k32) run on every SM of this card (at least the int8 peak), and
+    the rate of a loop of wgmma m64n128k256 .b1 from shared memory on every
+    SM.  Returns (peak, {"b1": ops/s, "s8": ops/s, "wgmma_b1": ops/s})."""
     from rattle_tpu_torch import _ext
     from rattle_tpu_torch.ops.kernels import _raise_on, _stream
     fn = _ext.load("mma_rate").mma_rate_launch
     blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
     rates = {}
-    for kind, name, k, iters in ((0, "b1", 256, 64), (1, "s8", 32, 512)):
+    for kind, name, k, iters in ((0, "b1", 256, 64), (1, "s8", 32, 512),
+                                 (2, "wgmma_b1", 256, 64)):
         ms = time_ms(lambda: _raise_on(fn(kind, iters, blocks, out.data_ptr(),
                                           _stream(dev)), "mma_rate"), reps=5)
-        ops = blocks * 8 * iters * MMA_CHAINS * 2 * 16 * 8 * k
+        if kind < 2:        # 8 warps, each MMA_CHAINS m16n8 MMAs an iteration
+            ops = blocks * 8 * iters * MMA_CHAINS * 2 * 16 * 8 * k
+        else:               # 2 warpgroups, each WGMMA_BATCH m64n128 wgmmas
+            ops = blocks * 2 * iters * WGMMA_BATCH * 2 * 64 * 128 * k
         rates[name] = ops / ms * 1e3
-    return PEAK_INT8 * max(1.0, rates["b1"] / rates["s8"]), rates
+    return max(PEAK_INT8 * max(1.0, rates["b1"] / rates["s8"]),
+               rates["wgmma_b1"]), rates
 
 
 def phase_bv_common(dev):
@@ -286,9 +299,10 @@ def phase_bv_common(dev):
     from rattle_tpu_torch.ops import kernels
     peak_b1, mma = _b1_peak(dev)
     print(f"  mma.sync from registers: b1 {mma['b1'] / 1e12:.1f}, s8 "
-          f"{mma['s8'] / 1e12:.1f} TOP/s; the bound's 1-bit rate "
-          f"{peak_b1 / 1e12:.1f} TOP/s (the int8 peak {PEAK_INT8 / 1e12:.0f} x"
-          f" max(1, b1 / s8))")
+          f"{mma['s8'] / 1e12:.1f} TOP/s; wgmma b1 from shared memory "
+          f"{mma['wgmma_b1'] / 1e12:.1f} TOP/s; the bound's 1-bit rate "
+          f"{peak_b1 / 1e12:.1f} TOP/s (the larger of wgmma b1's and the "
+          f"int8 peak {PEAK_INT8 / 1e12:.0f} x max(1, b1 / s8))")
     rows = []
     # a block wave, a sweep tile, then ragged shapes (zero rows in the first);
     # bit densities of 1,000-3,000 bp reads (~25-50% of the 4,096 6-mers)
@@ -556,7 +570,7 @@ def phase_lis(dev, kept):
 # sweep replay's random win matrices (seed rows x columns, win density)
 GATE_RAGGED = ((1000, 777), (1, 129), (129, 15), (15, 1), (333, 4097))
 ABSORB_RANDOM = ((4096, 4096, 0.0005), (1, 1, 0.5), (3, 1000, 0.3),
-                 (700, 4097, 0.0), (4096, 129, 0.02))
+                 (700, 4097, 0.0), (4096, 129, 0.02), (4096, 65536, 0.00002))
 # bytes of one row's or column's vectors the gate reads: bvc, order, group,
 # nk int32 and the read id int64
 GATE_VEC_BYTES = 24
@@ -583,56 +597,21 @@ def _gate_same(what: str, args):
     return got
 
 
-def _gate_args(eng, rows, cols, ordered: bool, words=None, groups=None,
-               cache="mix", tab=None, w_density: float = 0.0,
-               strand_val: int = 2, seed: int = 0):
-    """gate_block's arguments for reads ``rows`` x ``cols`` of the engine's
-    sketch: ``ordered`` tests row position < column position (a block),
-    else every pair (a sweep); ``words`` the columns' packed words (default
-    the forward sketch's); ``groups`` per read (default the engine's);
-    ``cache`` "mix" (a random 0/1/2 score cache), None, or a tensor; ``tab``
-    (default the main path's threshold); w with ``w_density`` of random
-    1s and 2s."""
-    dev = eng.device
-    sk = eng.sk
-    g = torch.Generator(device=dev).manual_seed(seed)
-    r = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
-    c = torch.from_numpy(np.asarray(cols, np.int64)).to(dev)
-    a, n_c = r.shape[0], c.shape[0]
-    grp = eng._groups_dev if groups is None else groups
-    if ordered:
-        order_r = torch.arange(a, dtype=torch.int32, device=dev)
-        order_c = torch.arange(n_c, dtype=torch.int32, device=dev)
-    else:
-        order_r = torch.zeros(a, dtype=torch.int32, device=dev)
-        order_c = torch.ones(n_c, dtype=torch.int32, device=dev)
-    if isinstance(cache, str):
-        cache = torch.randint(0, 3, (eng.cache_n ** 2,), generator=g,
-                              device=dev, dtype=torch.uint8)
-    u = torch.rand((a, n_c), generator=g, device=dev)
-    w = torch.where(u < w_density / 2, 1, torch.where(u < w_density, 2, 0)
-                    ).to(torch.int8)
-    return [sk.bvp[r], sk.bvc[r], order_r, grp[r],
-            (sk.bvp if words is None else words)[c], sk.bvc[c], order_c,
-            grp[c], eng._bv_table(eng.p.bv_threshold) if tab is None else tab,
-            cache, eng.cache_n, r, c, w, strand_val, eng.nk, eng._bounds_dev]
-
-
 def _gate_row(what: str, args, got, peak_b1: float) -> dict:
-    """One gate timed (CUDA-event medians) as the kernel, as the parent's
-    path (bv_common and the eager chain: gate_block_plain on bv_common) and
-    as the plain version, beside its bound: the larger of its bit products
-    at the 1-bit rate and its bytes (the packed words, each row's and
-    column's vectors, the cache bytes of the passing pairs, the cached wins
-    read and written in w, the fresh-pair mask and the pair list)."""
+    """One gate timed as the kernel (profile_gate.gate_row: the lone call,
+    the device time of a call without the host read's copy, the split of a
+    call and the launch plan) and as the plain version (CUDA-event medians),
+    beside
+    its bound: the larger of its bit products at the 1-bit rate and its
+    bytes (the packed words, each row's and column's vectors, the cache
+    bytes of the passing pairs, the cached wins read and written in w, the
+    fresh-pair mask and the pair list)."""
     from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.pipeline.profile_gate import gate_row
     a, c = args[0].shape[0], args[4].shape[0]
-    w = args[13].clone()
+    row = gate_row(what, args)
     run = list(args)
-    run[13] = w
-    ms = time_ms(lambda: kernels.gate_block(*run))
-    parent_ms = time_ms(lambda: kernels.gate_block_plain(
-        *run, common=kernels.bv_common))
+    run[13] = args[13].clone()
     plain_ms = time_ms(lambda: kernels.gate_block_plain(*run), reps=3,
                        warmup=1)
     nocache = list(run)
@@ -647,43 +626,49 @@ def _gate_row(what: str, args, got, peak_b1: float) -> dict:
                  + 4097 * 4,
                  cache=rows.shape[0] if args[9] is not None else 0,
                  w=2 * wins, mask=a * -(-c // 32) * 4, pairs=fresh * 16)
+    passing = int(rows.shape[0])
+    del rows, cols, nocache
     nbytes = sum(parts.values())
     ops = 2 * a * c * 4096
     bound = max(nbytes / PEAK_BYTES, ops / peak_b1) * 1e3
-    row = dict(what=what, shape=[a, c], passing=int(rows.shape[0]),
-               fresh=fresh, cached_wins=wins, ms=ms, parent_ms=parent_ms,
+    ms = row.pop("lone_ms")
+    row.update(passing=passing, cached_wins=wins, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                bound_by="bytes" if nbytes / PEAK_BYTES > ops / peak_b1
-               else "operations", bound_share=bound / ms, bytes=parts,
+               else "operations", bound_share=bound / ms,
+               device_bound_share=bound / row["device_ms"], bytes=parts,
                operations=ops, max_abs_err=0)
-    print(f"  gate_block {what} [{a}x{c}]: {row['passing']} passing, "
-          f"{fresh} fresh; kernel {ms:.4f} ms, parent path (bv_common + "
-          f"eager chain) {parent_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"    {passing} passing; plain {plain_ms:.4f} ms, bound "
           f"{bound:.5f} ms ({row['bound_by']}: {ops} bit operations, "
-          f"{nbytes} bytes {parts}), {100 * bound / ms:.1f}% of the bound; "
-          "no PyTorch call computes the gate")
+          f"{nbytes} bytes {parts}), {100 * bound / ms:.1f}% of the bound "
+          f"(lone), {100 * bound / row['device_ms']:.1f}% (device a "
+          "call); no PyTorch call computes the gate")
     return row
 
 
 def _absorb_row(what: str, w: torch.Tensor) -> dict:
-    """absorb_rest timed beside its plain version and its bound: the bytes
-    of the rows each column needs read up to its first win (every row where
-    none wins) and the [C] int32 output."""
+    """absorb_rest timed (profile_gate.absorb_row: the lone call, the
+    device time a launch and the plan) beside its plain version and its
+    bound: the bytes of the rows each column needs read up to its first win
+    (every row where none wins) and the [C] int32 output."""
     from rattle_tpu_torch.ops import kernels
+    from rattle_tpu_torch.pipeline.profile_gate import absorb_row
     s_, c = w.shape
-    ms = time_ms(lambda: kernels.absorb_rest(w))
+    row = absorb_row(what, w)
     plain_ms = time_ms(lambda: kernels.absorb_rest_plain(w))
     has = w > 0
     first = torch.argmax(has.to(torch.uint8), dim=0)
     read = torch.where(has.any(dim=0), first + 1, s_)
     nbytes = int(read.sum()) + 4 * c
     bound = nbytes / PEAK_BYTES * 1e3
-    row = dict(what=what, shape=[s_, c], ms=ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=bound, bound_by="bytes",
-               bound_share=bound / ms, bytes=nbytes, max_abs_err=0)
-    print(f"  absorb_rest {what} [{s_}x{c}]: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound:.5f} ms (bytes: {nbytes}), "
-          f"{100 * bound / ms:.1f}% of the bound")
+    ms = row.pop("lone_ms")
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+               bound_by="bytes", bound_share=bound / ms,
+               device_bound_share=bound / row["device_ms"], bytes=nbytes,
+               max_abs_err=0)
+    print(f"    plain {plain_ms:.4f} ms, bound {bound:.5f} ms (bytes: "
+          f"{nbytes}), {100 * bound / ms:.1f}% of the bound (lone), "
+          f"{100 * bound / row['device_ms']:.1f}% (device a launch)")
     return row
 
 
@@ -694,12 +679,18 @@ def phase_gate(dev, cap, peak_b1: float):
     reads with a score cache of random 0/1/2, the cache off, --iso-style
     groups, the reverse strand (strand_val 1, reverse-strand words, w
     already holding wins), a table that passes nothing, threshold 0 (an
-    all-zero table) and ragged shapes; timed at the block, at the captured
-    sweep tile and at a 1,024 x all-reads sweep.  absorb_rest exactly
-    against absorb_rest_plain on the sweep's win matrix and random ones,
-    timed at the sweep's and at 4,096 x 4,096."""
+    all-zero table), ragged shapes and the 4,096 x 65,536 sweep tile of
+    every wave above 65,536 reads (profile_gate.big_tile_args); timed at the
+    block, at the captured sweep tile, at a 1,024 x all-reads sweep and at
+    the 4,096 x 65,536 tile (the lone call, the device time a launch, the
+    split of a call, the plan).  absorb_rest exactly against
+    absorb_rest_plain on the sweep's win matrix, on that tile's w (no win)
+    and on random ones, timed at the sweep's, at a random 4,096 x 4,096 and
+    at the 4,096 x 65,536 tile's."""
     from rattle_tpu_torch.ops import kernels
     from rattle_tpu_torch.ops.sketch_device import build_device_sketch
+    from rattle_tpu_torch.pipeline.profile_gate import (big_tile_args,
+                                                        gate_args)
     eng = cap.engine
     check(len(cap.gate) == 2 and len(cap.absorb) == 1,
           f"phase 2b: captured {len(cap.gate)} gates and {len(cap.absorb)} "
@@ -716,29 +707,30 @@ def phase_gate(dev, cap, peak_b1: float):
     cases = [
         ("first wave's block", block),
         ("first sweep tile", sweep),
-        ("block, cache 0/1/2, w 1% wins", _gate_args(eng, blk, blk, True,
+        ("block, cache 0/1/2, w 1% wins", gate_args(eng, blk, blk, True,
                                                      w_density=0.01)),
-        ("block, cache off", _gate_args(eng, blk, blk, True, cache=None)),
-        ("block, --iso groups", _gate_args(eng, blk, blk, True, groups=iso,
+        ("block, cache off", gate_args(eng, blk, blk, True, cache=None)),
+        ("block, --iso groups", gate_args(eng, blk, blk, True, groups=iso,
                                            seed=1)),
-        ("block, reverse strand", _gate_args(
+        ("block, reverse strand", gate_args(
             eng, blk, blk, True, words=rev_bvp, w_density=0.02,
             strand_val=1, seed=2)),
-        ("block, nothing passes", _gate_args(
+        ("block, nothing passes", gate_args(
             eng, blk, blk, True, tab=torch.full((4097,), 4097,
                                                 dtype=torch.int32,
                                                 device=dev))),
-        ("threshold 0", _gate_args(
+        ("threshold 0", gate_args(
             eng, blk[:min(1000, half)], blk[half:half + 777], True,
             tab=torch.zeros(4097, dtype=torch.int32, device=dev), seed=3)),
-        ("sweep 1024 x every read", _gate_args(eng, wide, np.arange(n),
+        ("sweep 1024 x every read", gate_args(eng, wide, np.arange(n),
                                                False, seed=4)),
-        ("sweep, reverse strand, cache off", _gate_args(
+        ("sweep, reverse strand, cache off", gate_args(
             eng, wide, np.arange(n), False, words=rev_bvp, cache=None,
             w_density=0.01, strand_val=1, seed=5)),
+        ("sweep tile 4096 x 65536", big_tile_args(eng)),
     ]
     for i, (a, c) in enumerate(GATE_RAGGED):
-        cases.append((f"ragged {a}x{c}", _gate_args(
+        cases.append((f"ragged {a}x{c}", gate_args(
             eng, rng.choice(n, a, replace=False),
             rng.choice(n, c, replace=False), i % 2 == 0, w_density=0.01,
             seed=10 + i)))
@@ -752,10 +744,20 @@ def phase_gate(dev, cap, peak_b1: float):
           and outs["threshold 0"][0].shape[0] > 0,
           "phase 2b: no fresh pair in the block or at threshold 0")
     for what in ("first wave's block", "first sweep tile",
-                 "sweep 1024 x every read"):
+                 "sweep 1024 x every read", "sweep tile 4096 x 65536"):
         rows.append(_gate_row(what, dict(cases)[what], outs[what], peak_b1))
+        # the one host read follows pass 1 with nothing between them
+        seq = [name for name, _ms in rows[-1]["device_sequence"]]
+        tile = [i for i, n in enumerate(seq) if "gate_tile_kernel" in n]
+        check(len(tile) == 1 and tile[0] + 1 < len(seq)
+              and seq[tile[0] + 1].startswith("Memcpy DtoH"),
+              f"phase 2b {what}: the device ran {seq}; the host read must "
+              "follow pass 1 directly")
+    del outs
     g = torch.Generator(device=dev).manual_seed(7)
-    absorb_cases = [("first sweep tile", cap.absorb[0])]
+    absorb_cases = [("first sweep tile", cap.absorb[0]),
+                    ("sweep tile 4096 x 65536",
+                     dict(cases)["sweep tile 4096 x 65536"][13])]
     for s_, c, dens in ABSORB_RANDOM:
         u = torch.rand((s_, c), generator=g, device=dev)
         absorb_cases.append((f"random {s_}x{c} p={dens}", torch.where(
@@ -767,8 +769,14 @@ def phase_gate(dev, cap, peak_b1: float):
         torch.cuda.synchronize()
         check(bool(torch.equal(got, ref)), f"phase 2b absorb_rest {what}: "
               "differs from the plain version")
-        if what in ("first sweep tile", "random 4096x4096 p=0.0005"):
+        if what in ("first sweep tile", "random 4096x4096 p=0.0005",
+                    "sweep tile 4096 x 65536"):
             absorb.append(_absorb_row(what, w))
+    # every case again, after all the timed launches
+    for what, w in absorb_cases:
+        check(bool(torch.equal(kernels.absorb_rest(w),
+                               kernels.absorb_rest_plain(w))),
+              f"phase 2b absorb_rest {what}: differs when run again")
     print(f"phase 2b gate_block + absorb_rest: gate_block exact (rows, cols, "
           f"class counts, w) against its plain version on {len(cases)} "
           f"cases ({', '.join(w for w, _a in cases)}), absorb_rest on "
@@ -1589,7 +1597,7 @@ def _plain_score_path():
 def _main_run(label, reads, flags, plain: bool = False):
     """Cluster ``reads`` on cuda; every read must land in one cluster and
     every cluster kernel must have launched in this run, bv_common never
-    (its tile runs inside gate_block: no [A, C] count matrix is written),
+    (its product runs inside gate_block: no [A, C] count matrix is written),
     and the engine's host reads must keep its rule (``_wave_reads``).  With
     ``plain`` the wave runs its plain versions (``_plain_score_path``), and
     none of their kernels may launch."""
@@ -2518,7 +2526,7 @@ def run() -> int:
                 "library_ms": row["library_ms"]}
 
     kernels_line = {"kernels": [
-        # phase 2's lone calls; on the main path its tile runs inside
+        # phase 2's lone calls; on the main path its product runs inside
         # gate_block, so its launches there are 0
         record("bv_common", bv_rows[0], "rattle_tpu_torch/csrc/bv_common.cu",
                "rattle_tpu/ops/pallas_kernels.py:70"),

@@ -55,10 +55,10 @@ _SIGNATURES = {
                         [_P, _P, _I, _I, _P, _P, _P] + [_I] * 8 + [_P] * 5),
     "gate_block": (("gate_tile_launch",
                     [_P, _P, _I, _I] + [_P] * 10 + [_P, _L, _P, _I, _P, _I]
-                    + [_P] * 3),
-                   ("gate_emit_launch", [_P, _I, _I] + [_P] * 5
+                    + [_P] * 3 + [_I, _P]),
+                   ("gate_emit_launch", [_P, _I, _I] + [_P] * 4
                     + [_I] + [_P] * 3)),
-    "absorb_rest": ("absorb_rest_launch", [_P, _I, _I, _P, _P]),
+    "absorb_rest": ("absorb_rest_launch", [_P] + [_I] * 5 + [_P] * 2),
     "mma_rate": ("mma_rate_launch", [_I, _I, _I, _P, _P]),
 }
 

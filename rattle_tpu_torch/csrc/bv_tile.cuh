@@ -1,6 +1,7 @@
 // bv_tile: the tensor-core tile of popcount(AND) over packed 4096-bit 6-mer
-// presence vectors, shared by bv_common.cu (which stores the counts) and
-// gate_block.cu (which tests them where they are, in registers).
+// presence vectors.  bv_common.cu runs the whole tile (and stores the
+// counts); gate_block.cu stages its words with load_stage, whose layout is
+// wgmma's 128-byte swizzle, and contracts them with wgmma instead.
 //
 // A block of 256 threads computes 128 x 128 outputs with 8 warps (2 x 4),
 // each warp 64 x 32 (4 x 4 tiles of 16 x 8).  Both operand tiles stream

@@ -18,9 +18,10 @@ jitted programs that ran as eager launch chains:
 * ``score_decide`` -- csrc/score_decide.cu: the decision half of _score_body.
 * ``greedy_owner`` -- csrc/greedy_owner.cu: rattle_tpu/cluster/bulk.py::
   greedy_owner, the block replay.
-* ``gate_block``   -- csrc/gate_block.cu (two passes; bv_common's tile from
-  csrc/bv_tile.cuh): rattle_tpu/cluster/bulk.py::gate_class_block, the
-  gate with its cache fold, class routing and pair compaction.
+* ``gate_block``   -- csrc/gate_block.cu (a persistent pass 1 on wgmma over
+  csrc/bv_tile.cuh's stages, one host read, pass 2 a warp a row):
+  rattle_tpu/cluster/bulk.py::gate_class_block, the gate with its cache
+  fold, class routing and pair compaction.
 * ``absorb_rest``  -- csrc/absorb_rest.cu: rattle_tpu/cluster/bulk.py::
   absorb_rest, the sweep replay.
 
@@ -1320,9 +1321,136 @@ greedy_owner.launches = 0
 # cluster's decision wave: the gate, and the sweep replay
 # --------------------------------------------------------------------------
 
-# K classes the gate routes to (csrc/gate_block.cu packs a class's count of
-# a (row, 128-column tile) into eight bits, four classes a word)
+# K classes the gate routes to (csrc/gate_block.cu counts a class's fresh
+# pairs of a (row, 128-column tile) in eight bits, four classes a word)
 GATE_MAX_CLASSES = 4
+# the gate's output tile (csrc/bv_tile.cuh kBM x kBN) and its 128 words
+GATE_TILE = 128
+# pass-1 CTAs resident on an SM (__launch_bounds__(256, 2); ~77 KB of shared
+# memory a CTA)
+GATE_CTAS_PER_SM = 2
+# what pass 1 stages (csrc/gate_block.cu): the row and column tiles' orders
+# (kMaxSideTiles), the tiles a CTA lists (kMaxWalk)
+GATE_MAX_SIDE_TILES = 1024
+GATE_MAX_WALK = 256
+
+
+def gate_block_plan(a: int, c: int, n_sm: int) -> dict:
+    """Pass 1's launch plan for A rows x C columns on ``n_sm`` SMs: the
+    ceil(A / 128) x ceil(C / 128) output tiles (``tiles_r``, ``tiles_c``;
+    tile t is row tile t % tiles_r, column tile t / tiles_r) and ``ctas``
+    CTAs, as many as fit on the card at once (``n_sm`` x GATE_CTAS_PER_SM)
+    but no more than the tiles.  The tiles are dealt out in index order,
+    the k-th to CTA k % ctas; on the card the tiles whose rows' orders all
+    reach their columns' (no pair there can pass; the lower triangle of a
+    block wave) are skipped first.  ``gate_block_walk`` lists what each CTA
+    takes.  ``supported``: the kernel takes the plan (at most
+    GATE_MAX_SIDE_TILES row and column tiles, GATE_MAX_WALK tiles a CTA);
+    the wrapper raises otherwise."""
+    tiles_r, tiles_c = -(-a // GATE_TILE), -(-c // GATE_TILE)
+    tiles = tiles_r * tiles_c
+    ctas = min(tiles, n_sm * GATE_CTAS_PER_SM)
+    per = -(-tiles // ctas) if ctas else 0
+    return dict(ctas=ctas, tiles_r=tiles_r, tiles_c=tiles_c, tiles=tiles,
+                tiles_per_cta=per,
+                supported=tiles_r + tiles_c <= GATE_MAX_SIDE_TILES
+                and per <= GATE_MAX_WALK)
+
+
+def gate_block_walk(plan: dict, row_min=None, col_max=None) -> list:
+    """The tiles each CTA of ``plan`` computes, in its order: for CTA i,
+    [(tile row, tile column), ...].  Given the tiles' orders (each row
+    tile's least row order, each column tile's largest column order, as
+    csrc/gate_block.cu's side kernel writes them), the tiles that may pass
+    (row_min < col_max) in index order, the k-th dealt to CTA k % ctas,
+    the others skipped, as pass 1 deals them on the card; else every tile
+    (a sweep's orders skip none)."""
+    ctas, tiles_r = plan["ctas"], plan["tiles_r"]
+    left = [t for t in range(plan["tiles"]) if row_min is None
+            or row_min[t % tiles_r] < col_max[t // tiles_r]]
+    return [[(t % tiles_r, t // tiles_r) for t in left[cta::ctas]]
+            for cta in range(ctas)]
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# a pinned host buffer a device, into which the gate's class counts are
+# copied: its one host read
+_gate_host = {}
+
+
+def gate_block_pass1(bvp_rows, bvc_rows, order_rows, group_rows, bvp_cols,
+                     bvc_cols, order_cols, group_cols, tab, cache, cache_n,
+                     row_ids, col_ids, w, strand_val, nk, bounds) -> dict:
+    """gate_block's pass 1 on the card, its inputs already checked (A, C >
+    0): the gate, the cache fold into w, the mask of fresh pairs, their
+    counts by (class, row) and, by the last CTA, the offsets and the class
+    counts.  Returns the state that ``gate_block_read`` and
+    ``gate_block_pass2`` take."""
+    dev = w.device
+    a, c = bvp_rows.shape[0], bvp_cols.shape[0]
+    n_cls = bounds.shape[0] + 1
+    plan = gate_block_plan(a, c, _sm_count(dev))
+    if not plan["supported"]:
+        raise ValueError(
+            f"gate_block: {a} x {c} is {plan['tiles_r']} x {plan['tiles_c']} "
+            f"tiles, {plan['tiles_per_cta']} a CTA; the kernel takes at "
+            f"most {GATE_MAX_SIDE_TILES} row and column tiles and "
+            f"{GATE_MAX_WALK} a CTA")
+    n_words = -(-c // 32)
+    mask = torch.empty((a, n_words), dtype=torch.int32, device=dev)
+    # counts, the ticket, offsets, the columns' two class planes, the row
+    # tiles' least and the column tiles' largest orders
+    scratch = torch.empty(2 * n_cls * a + 1 + 2 * n_words + plan["tiles_r"]
+                          + plan["tiles_c"], dtype=torch.int32, device=dev)
+    class_counts = torch.empty(n_cls, dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    _raise_on(_ext.load("gate_block").gate_tile_launch(
+        bvp_rows.data_ptr(), bvp_cols.data_ptr(), a, c, bvc_rows.data_ptr(),
+        bvc_cols.data_ptr(), order_rows.data_ptr(), order_cols.data_ptr(),
+        group_rows.data_ptr(), group_cols.data_ptr(), row_ids.data_ptr(),
+        col_ids.data_ptr(), nk.data_ptr(), tab.data_ptr(),
+        None if cache is None else cache.data_ptr(), cache_n, w.data_ptr(),
+        strand_val, bounds.data_ptr(), n_cls - 1, mask.data_ptr(),
+        scratch.data_ptr(), class_counts.data_ptr(), plan["ctas"], stream),
+        "gate_block")
+    gate_block.launches += 1
+    return dict(stream=stream, a=a, c=c, n_cls=n_cls, mask=mask,
+                scratch=scratch, class_counts=class_counts, row_ids=row_ids,
+                nk=nk, bounds=bounds)
+
+
+def gate_block_read(st: dict) -> Tuple[int, ...]:
+    """The gate's one host read: the class counts, by one copy into a
+    pinned buffer right after pass 1, then a wait for the stream."""
+    dev = st["class_counts"].device
+    host = _gate_host.get(dev)
+    if host is None:
+        host = _gate_host[dev] = torch.empty(
+            GATE_MAX_CLASSES, dtype=torch.int32, pin_memory=True)
+    n = st["n_cls"]
+    host[:n].copy_(st["class_counts"], non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return tuple(host[:n].tolist())
+
+
+def gate_block_pass2(st: dict, n_class: Tuple[int, ...]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gate_block's pass 2: the fresh pairs, sum(n_class) of them, in the
+    plain version's order."""
+    dev = st["class_counts"].device
+    total = sum(n_class)
+    rows = torch.empty(total, dtype=torch.int64, device=dev)
+    cols = torch.empty(total, dtype=torch.int64, device=dev)
+    if total:
+        _raise_on(_ext.load("gate_block").gate_emit_launch(
+            st["mask"].data_ptr(), st["a"], st["c"], st["scratch"].data_ptr(),
+            st["row_ids"].data_ptr(), st["nk"].data_ptr(),
+            st["bounds"].data_ptr(), st["n_cls"] - 1, rows.data_ptr(),
+            cols.data_ptr(), st["stream"]), "gate_block")
+    return rows, cols
 
 
 def gate_block_plain(bvp_rows, bvc_rows, order_rows, group_rows, bvp_cols,
@@ -1382,8 +1510,11 @@ def gate_block(bvp_rows: torch.Tensor, bvc_rows: torch.Tensor,
     Returns (rows, cols [total] int64, class_counts [n_classes] int32), on
     the device: the fresh pairs stably sorted by class, row-major within a
     class; and the same class counts as the host read them (a tuple), the
-    one read the gate makes.  On the card: two launches with that read
-    between them (it sizes rows and cols), no [A, C] intermediate."""
+    one read the gate makes.  On the card: pass 1 (``gate_block_pass1``,
+    persistent, its plan from ``gate_block_plan``), the read right after it
+    (``gate_block_read``: it sizes rows and cols), pass 2
+    (``gate_block_pass2``); nothing runs between them, and no [A, C]
+    intermediate."""
     dev = w.device
     a, c = bvp_rows.shape[0], bvp_cols.shape[0]
     _check("gate_block bvp_rows", bvp_rows, torch.int32, 2, dev, BV_WORDS)
@@ -1399,6 +1530,9 @@ def gate_block(bvp_rows: torch.Tensor, bvc_rows: torch.Tensor,
     if w.shape[0] != a:
         raise ValueError(f"gate_block: w is {tuple(w.shape)}, rows x cols "
                          f"are {a} x {c}")
+    if a * c >= 2 ** 31:
+        raise ValueError(f"gate_block: {a} x {c} pairs, the pair list's "
+                         "int32 offsets take < 2^31")
     _check("gate_block nk", nk, torch.int32, 1, dev)
     _check("gate_block bounds", bounds, torch.int32, 1, dev)
     if bounds.shape[0] >= GATE_MAX_CLASSES:
@@ -1422,36 +1556,57 @@ def gate_block(bvp_rows: torch.Tensor, bvc_rows: torch.Tensor,
         empty = torch.empty(0, dtype=torch.int64, device=dev)
         return empty, empty.clone(), torch.zeros(
             n_cls, dtype=torch.int32, device=dev), (0,) * n_cls
-    n_words, n_tiles = -(-c // 32), -(-c // 128)
-    mask = torch.empty((a, n_words), dtype=torch.int32, device=dev)
-    counts = torch.empty((n_cls, a, n_tiles), dtype=torch.int32, device=dev)
-    lib = _ext.load("gate_block")
-    stream = _stream(dev)
-    _raise_on(lib.gate_tile_launch(
-        bvp_rows.data_ptr(), bvp_cols.data_ptr(), a, c, bvc_rows.data_ptr(),
-        bvc_cols.data_ptr(), order_rows.data_ptr(), order_cols.data_ptr(),
-        group_rows.data_ptr(), group_cols.data_ptr(), row_ids.data_ptr(),
-        col_ids.data_ptr(), nk.data_ptr(), tab.data_ptr(),
-        None if cache is None else cache.data_ptr(), cache_n, w.data_ptr(),
-        strand_val, bounds.data_ptr(), n_cls - 1, mask.data_ptr(),
-        counts.data_ptr(), stream), "gate_block")
-    gate_block.launches += 1
-    flat = counts.reshape(-1)
-    offsets = torch.cumsum(flat, 0, dtype=torch.int32) - flat
-    class_counts = counts.reshape(n_cls, -1).sum(1, dtype=torch.int32)
-    n_class = tuple(class_counts.tolist())      # the one host read
-    total = sum(n_class)
-    rows = torch.empty(total, dtype=torch.int64, device=dev)
-    cols = torch.empty(total, dtype=torch.int64, device=dev)
-    if total:
-        _raise_on(lib.gate_emit_launch(
-            mask.data_ptr(), a, c, offsets.data_ptr(), row_ids.data_ptr(),
-            col_ids.data_ptr(), nk.data_ptr(), bounds.data_ptr(), n_cls - 1,
-            rows.data_ptr(), cols.data_ptr(), stream), "gate_block")
-    return rows, cols, class_counts, n_class
+    st = gate_block_pass1(bvp_rows, bvc_rows, order_rows, group_rows,
+                          bvp_cols, bvc_cols, order_cols, group_cols, tab,
+                          cache, cache_n, row_ids, col_ids, w, strand_val,
+                          nk, bounds)
+    n_class = gate_block_read(st)
+    rows, cols = gate_block_pass2(st, n_class)
+    return rows, cols, st["class_counts"], n_class
 
 
 gate_block.launches = 0
+
+# absorb_rest's panel: 16 bytes a thread, 32 threads (csrc/absorb_rest.cu),
+# the least rows a strip (one step of its CTA: 8 warps, 4 rows' loads in
+# flight each), the CTAs an SM the plan aims for, the most rows taken by
+# the column layout (a lane a column, 32 columns a CTA) instead
+ABSORB_PANEL = 512
+ABSORB_MIN_ROWS = 32
+ABSORB_CTAS_PER_SM = 2
+ABSORB_ONE_STRIP = 512
+ABSORB_COLUMNS = 32
+_ABSORB_LAYOUTS = {"panels": 0, "columns": 1}
+
+
+def absorb_rest_plan(s: int, c: int, n_sm: int) -> dict:
+    """absorb_rest's launch plan for an S x C win matrix on ``n_sm`` SMs.
+    Above ABSORB_ONE_STRIP rows, ``layout`` "panels": ``panels`` of 512
+    columns x ``strips`` of ``rows_per_strip`` rows, as many strips as make
+    ABSORB_CTAS_PER_SM CTAs an SM, but at least ABSORB_MIN_ROWS rows a
+    strip.  Up to it, "columns": one CTA a 32 columns, all rows (measured
+    faster there, PERF.md §6, PR 14).  ``absorb_rest_cells`` lists the
+    CTAs."""
+    if s <= ABSORB_ONE_STRIP:
+        n = -(-c // ABSORB_COLUMNS)
+        return dict(layout="columns", panels=n, strips=1, rows_per_strip=s,
+                    ctas=n)
+    panels = -(-c // ABSORB_PANEL)
+    want = -(-ABSORB_CTAS_PER_SM * n_sm // max(panels, 1))
+    strips = max(1, min(want, -(-s // ABSORB_MIN_ROWS)))
+    rows = -(-s // strips)
+    strips = -(-s // rows)
+    return dict(layout="panels", panels=panels, strips=strips,
+                rows_per_strip=rows, ctas=panels * strips)
+
+
+def absorb_rest_cells(plan: dict, s: int, c: int) -> list:
+    """The (row lo, row hi, column lo, column hi) each CTA of ``plan`` reads
+    for an S x C matrix, panel-major."""
+    r = plan["rows_per_strip"]
+    width = ABSORB_PANEL if plan["layout"] == "panels" else ABSORB_COLUMNS
+    return [(k * r, min(s, (k + 1) * r), p * width, min(c, (p + 1) * width))
+            for p in range(plan["panels"]) for k in range(plan["strips"])]
 
 
 def absorb_rest_plain(w: torch.Tensor) -> torch.Tensor:
@@ -1467,8 +1622,9 @@ def absorb_rest_plain(w: torch.Tensor) -> torch.Tensor:
 def absorb_rest(w: torch.Tensor) -> torch.Tensor:
     """Sweep-phase absorption: each column joins the EARLIEST winning seed
     row (first-claim, cluster.cpp:141-150).  w [S, C] int8.  Returns packed
-    [C] int32 = (seed_row << 1) | rev, or -1.  One launch, a thread a
-    column."""
+    [C] int32 = (seed_row << 1) | rev, or -1.  One launch of the plan
+    ``absorb_rest_plan`` gives (with more than one strip, after a memset of
+    the output, where the strips' first wins meet)."""
     dev = w.device
     _check("absorb_rest w", w, torch.int8, 2, dev)
     s, c = w.shape
@@ -1479,9 +1635,11 @@ def absorb_rest(w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((c,), dtype=torch.int32, device=dev)
     if c == 0:
         return out
+    plan = absorb_rest_plan(s, c, _sm_count(dev))
     fn = _ext.load("absorb_rest").absorb_rest_launch
-    _raise_on(fn(w.data_ptr(), s, c, out.data_ptr(), _stream(dev)),
-              "absorb_rest")
+    _raise_on(fn(w.data_ptr(), s, c, plan["strips"], plan["rows_per_strip"],
+                 _ABSORB_LAYOUTS[plan["layout"]], out.data_ptr(),
+                 _stream(dev)), "absorb_rest")
     absorb_rest.launches += 1
     return out
 

@@ -264,9 +264,11 @@ def main() -> int:
     d2h = syncs.get("DtoH", {}).get("calls", 0)
     by_dev = sorted(avgs, key=_device_us, reverse=True)[:12]
     # the port's own kernels, by their names in csrc/*.cu (gate_block's
-    # two passes: gate_tile_kernel, gate_emit_kernel)
-    names = {k: ("gate_tile", "gate_emit") if k == "gate_block" else (k,)
-             for k in launches}
+    # side kernel and two passes; absorb_rest's two layouts, or the one
+    # kernel of an earlier checkout)
+    several = {"gate_block": ("gate_sides", "gate_tile", "gate_emit"),
+               "absorb_rest": ("absorb_rest", "absorb_panel", "absorb_column")}
+    names = {k: several.get(k, (k,)) for k in launches}
     kernel_ms = {name: sum(_device_us(a) for a in avgs
                            if any(f"{n}_kernel" in a.key for n in ns)) / 1e3
                  for name, ns in names.items()}

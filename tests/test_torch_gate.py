@@ -264,3 +264,297 @@ def test_engine_host_reads_keep_the_rule(case):
           [(s.seq_id, s.rev) for s in c_.seqs]) for c_ in want]
     # on the CPU no section has a device time
     assert not any(k.endswith("_dev") for k in eng.phase_times)
+
+
+# --------------------------------------------------------------------------
+# the card's launch plans and count layout, checked here in Python
+# --------------------------------------------------------------------------
+
+# phase 2b's shapes (block, first sweep tile, 1,024 x every read, ragged),
+# the sweep tile of every wave above 65,536 reads, and empty sides
+PLAN_SHAPES = [(4096, 4096), (286, 4096), (1024, 8192), (1000, 777),
+               (1, 129), (129, 15), (15, 1), (333, 4097), (4096, 65536),
+               (0, 5), (7, 0)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_gate_block_plan_covers_every_tile_once(shape, n_sm):
+    """Every 128 x 128 output tile is computed by exactly one CTA; no more
+    CTAs than fit on the card or than there are tiles, and none idle."""
+    a, c = shape
+    plan = kernels.gate_block_plan(a, c, n_sm)
+    tiles_r, tiles_c = -(-a // 128), -(-c // 128)
+    assert plan["tiles"] == tiles_r * tiles_c
+    assert plan["ctas"] == min(n_sm * kernels.GATE_CTAS_PER_SM, plan["tiles"])
+    seen = {}
+    for cta, walk in enumerate(kernels.gate_block_walk(plan)):
+        assert walk and len(walk) <= plan["tiles_per_cta"]
+        for tr, tc in walk:
+            assert 0 <= tr < tiles_r and 0 <= tc < tiles_c
+            seen[(tr, tc)] = seen.get((tr, tc), 0) + 1
+    assert len(seen) == plan["tiles"] and set(seen.values()) <= {1}
+    if plan["tiles"]:
+        # a CTA walks its tiles row tile fastest
+        first = kernels.gate_block_walk(plan)[0]
+        assert first == sorted(first, key=lambda rc: (rc[1], rc[0]))
+
+
+def _tile_orders(order_rows, order_cols):
+    """(row_min, col_max): each 128-row tile's least row order and each
+    128-column tile's largest column order, past the edge INT32_MAX /
+    INT32_MIN, as csrc/gate_block.cu's gate_sides_kernel writes them."""
+    def tiles(order, pad):
+        out = np.full(-(-len(order) // 128) * 128, pad, np.int64)
+        out[:len(order)] = order
+        return out.reshape(-1, 128)
+    i32 = np.iinfo(np.int32)
+    return (tiles(order_rows, i32.max).min(1),
+            tiles(order_cols, i32.min).max(1))
+
+
+# (A, C, orders): a block wave (positions), a block of shuffled positions,
+# a sweep tile (rows 0, columns 1), ragged blocks
+WALK_CASES = [(4096, 4096, "block"), (4096, 4096, "shuffled"),
+              (286, 4096, "sweep"), (1000, 777, "block"),
+              (333, 4097, "shuffled"), (129, 15, "block"), (1, 1, "block"),
+              (300, 300, "block")]
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_gate_block_walk_deals_the_tiles_left_once(case, n_sm):
+    """Pass 1's dealing with the tile skip, as gate_block_walk models it:
+    every tile holding a pair that may pass the order test (order_row <
+    order_col) is computed exactly once; a tile skipped holds no such pair;
+    a CTA takes at most tiles_per_cta tiles, so at most GATE_MAX_WALK where
+    the plan is supported (the kernel lists every CTA's tiles)."""
+    a, c, kind = case
+    rng = np.random.default_rng(a + c)
+    if kind == "sweep":
+        o_r, o_c = np.zeros(a, np.int64), np.ones(c, np.int64)
+    else:
+        pos = np.arange(max(a, c))
+        if kind == "shuffled":
+            pos = rng.permutation(pos)
+        o_r, o_c = pos[:a], pos[:c]
+    row_min, col_max = _tile_orders(o_r, o_c)
+    plan = kernels.gate_block_plan(a, c, n_sm)
+    walk = kernels.gate_block_walk(plan, row_min, col_max)
+    seen = {}
+    for tiles in walk:
+        assert len(tiles) <= plan["tiles_per_cta"]
+        if plan["supported"]:
+            assert len(tiles) <= kernels.GATE_MAX_WALK
+        for tr, tc in tiles:
+            seen[(tr, tc)] = seen.get((tr, tc), 0) + 1
+    assert set(seen.values()) <= {1}
+    for tr in range(plan["tiles_r"]):
+        for tc in range(plan["tiles_c"]):
+            rs = o_r[tr * 128:(tr + 1) * 128]
+            cs = o_c[tc * 128:(tc + 1) * 128]
+            may = bool((rs[:, None] < cs[None, :]).any())
+            assert ((tr, tc) in seen) == may, (tr, tc)
+    if kind == "block" and plan["tiles_r"] > 1:
+        # a block wave's lower triangle is skipped
+        assert len(seen) == plan["tiles_r"] * (plan["tiles_r"] + 1) // 2 \
+            if a == c else len(seen) < plan["tiles"]
+
+
+@pytest.mark.parametrize("shape,n_sm,ok", [
+    ((4096, 4096), 132, True), ((286, 4096), 132, True),
+    ((4096, 65536), 132, True), ((1024, 8192), 132, True),
+    ((4096, 4096), 1, False), ((4096, 65536), 1, False),
+    ((41000, 41000), 132, False), ((128, 131072), 132, False)])
+def test_gate_block_plan_supported_at_the_engine_shapes(shape, n_sm, ok):
+    """The kernel takes every shape the engine gives it on the H100's 132
+    SMs (a block of k_block <= 4,096 reads, a sweep tile of k_block x
+    SWEEP_TILE); the wrapper refuses a plan with more than
+    GATE_MAX_SIDE_TILES row and column tiles or more than GATE_MAX_WALK
+    tiles a CTA instead of running it another way."""
+    plan = kernels.gate_block_plan(*shape, n_sm)
+    assert plan["supported"] is ok
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_absorb_rest_plan_covers_every_entry_once(shape, n_sm):
+    """The (panel, strip) CTAs read every entry of the S x C win matrix
+    exactly once; above ABSORB_ONE_STRIP rows, panels with at least
+    ABSORB_MIN_ROWS rows a strip where S allows, aiming at two CTAs an SM;
+    at most that, the column layout, all rows a CTA."""
+    s, c = shape
+    plan = kernels.absorb_rest_plan(s, c, n_sm)
+    cells = kernels.absorb_rest_cells(plan, s, c)
+    assert len(cells) == plan["ctas"] == plan["panels"] * plan["strips"]
+    assert 1 <= plan["strips"] < 65536
+    assert plan["strips"] * plan["rows_per_strip"] >= s
+    if c == 0:                              # the wrapper launches nothing
+        assert plan["ctas"] == 0
+        return
+    rows = np.zeros(s + 1, np.int64)
+    cols = np.zeros(c + 1, np.int64)
+    for r0, r1, c0, c1 in cells:
+        assert 0 <= r0 <= r1 <= s and 0 <= c0 <= c1 <= c
+        if c0 == 0:
+            rows[r0:r1] += 1
+        if r0 == 0:
+            cols[c0:c1] += 1
+    assert (rows[:s] == 1).all() and (cols[:c] == 1).all()
+    if s <= kernels.ABSORB_ONE_STRIP:
+        assert plan["strips"] == 1 and plan["layout"] == "columns"
+    else:
+        assert plan["layout"] == "panels"
+        if s >= kernels.ABSORB_MIN_ROWS * plan["strips"]:
+            assert plan["rows_per_strip"] >= kernels.ABSORB_MIN_ROWS
+    if s >= 2048 and c > 0:
+        assert plan["ctas"] >= kernels.ABSORB_CTAS_PER_SM * n_sm
+
+
+EMIT_WARPS = 8          # csrc/gate_block.cu kEmitWarps: segments a row
+
+
+def _gate_numpy(args):
+    """The gate of ``args`` in numpy, as the card lays it out.  Pass 1: each
+    fresh pair counted by (class, row), a pair's class the larger of its
+    two reads' own classes, the columns' classes kept as two bit planes a
+    32-column word; the counts scanned class-major into offsets.  Pass 2,
+    for each row with a fresh pair: its mask words cut into EMIT_WARPS
+    segments of a multiple of 32 words, each segment's pairs counted by
+    class and the counts scanned
+    from the row's offsets, then each segment walked in column order with a
+    running offset a class.  Returns (rows, cols, class counts, counts by
+    (class, row))."""
+    x = [t.numpy() if isinstance(t, torch.Tensor) else t for t in args]
+    (bvp_r, bvc_r, ord_r, grp_r, bvp_c, bvc_c, ord_c, grp_c, tab, cache,
+     cache_n, rid, cid, _w, _sv, nk, bounds) = x
+
+    def planes(words):
+        bits = (words.view(np.uint32)[:, :, None] >> np.arange(32)) & 1
+        return bits.reshape(len(words), -1).astype(np.int32)
+
+    common = planes(bvp_r) @ planes(bvp_c).T
+    fresh = (common >= tab[np.maximum(bvc_r[:, None], bvc_c[None, :])]) \
+        & (ord_r[:, None] < ord_c[None, :]) & (grp_r[:, None] == grp_c[None])
+    if cache is not None:
+        fresh &= cache[rid[:, None] * cache_n + cid[None, :]] == 0
+    n_cls = len(bounds) + 1
+    a, c = fresh.shape
+    n_words = -(-c // 32)
+    r_cls = (nk[rid][:, None] > bounds).sum(1)
+    c_cls = np.zeros(n_words * 32, np.int64)
+    c_cls[:c] = (nk[cid][:, None] > bounds).sum(1)
+    lo = (c_cls & 1).reshape(n_words, 32)       # the two planes
+    hi = (c_cls >> 1).reshape(n_words, 32)
+    cls = np.maximum(r_cls[:, None], c_cls[None, :c])
+    counts = np.stack([(fresh & (cls == k)).sum(1) for k in range(n_cls)])
+    flat = counts.ravel()
+    offsets = (np.cumsum(flat) - flat).reshape(n_cls, a)
+    total = int(flat.sum())
+    rows = np.full(total, -1, np.int64)
+    cols = np.full(total, -1, np.int64)
+    padded = np.zeros((a, n_words * 32), bool)
+    padded[:, :c] = fresh
+    words = padded.reshape(a, n_words, 32)
+    seg = -(-n_words // (EMIT_WARPS * 32)) * 32
+    for r in range(a):
+        if counts[:, r].sum() == 0:
+            continue                        # exits after one load
+        segs = [range(min(n_words, w * seg), min(n_words, (w + 1) * seg))
+                for w in range(EMIT_WARPS)]
+
+        def pair_cls(m):
+            return np.maximum(r_cls[r], lo[m] | (hi[m] << 1))
+
+        seg_counts = np.array([[sum(int((words[r, m] & (pair_cls(m) == k))
+                                        .sum()) for m in sg)
+                                for k in range(n_cls)] for sg in segs])
+        starts = offsets[:, r] + np.cumsum(seg_counts, 0) - seg_counts
+        for sg, run in zip(segs, starts):
+            run = run.copy()
+            for m in sg:
+                for lane in np.nonzero(words[r, m])[0]:
+                    k = pair_cls(m)[lane]
+                    rows[run[k]], cols[run[k]] = r, 32 * m + lane
+                    run[k] += 1
+    return rows, cols, counts.sum(1), counts
+
+
+@pytest.mark.parametrize("case", ["cache", "cache_off", "iso", "sweep",
+                                  "wide"])
+@pytest.mark.parametrize("n_cls", [1, 2, 3, 4])
+def test_gate_count_layout_reproduces_plain_order(case, n_cls):
+    """The card's layout (counts by (class, row), exclusive scan, pass 2's
+    walk of each row's mask words in segments, classes from the column
+    planes) gives gate_block_plain's rows and cols element for element on
+    the engine's reads, with a row that has no fresh pair among them."""
+    from rattle_tpu_torch.pipeline.profile_gate import gate_args
+    seqs = _families(41)
+    eng = BulkClusterEngine(seqs, ClusterParams(is_rna=True), device="cpu")
+    n = eng.n
+    rng = np.random.default_rng(n_cls)
+    groups = None
+    if case == "iso":
+        groups = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+    if case in ("sweep", "wide"):
+        # wide: the columns repeated to 2,500 (79 mask words, 3 segments)
+        cols = np.arange(12, n) if case == "sweep" \
+            else np.resize(np.arange(12, n), 2500)
+        args = gate_args(eng, np.arange(12), cols, False, w_density=0.05,
+                         seed=n_cls)
+    else:
+        ids = rng.permutation(n)[:40]
+        args = gate_args(eng, ids, ids, True, groups=groups,
+                         cache=None if case == "cache_off" else "mix",
+                         w_density=0.05, seed=n_cls)
+    # bounds at quantiles of nk, so that every class holds pairs
+    q = np.quantile(eng.nk_host[:n], [0.4, 0.6, 0.8][:n_cls - 1])
+    args[16] = torch.from_numpy(q.astype(np.int32))
+    rows, cols, cc, counts = _gate_numpy(args)
+    got = kernels.gate_block_plain(*args)
+    np.testing.assert_array_equal(got[0].numpy(), rows)
+    np.testing.assert_array_equal(got[1].numpy(), cols)
+    np.testing.assert_array_equal(got[2].numpy(), cc)
+    assert len(rows) > 0 and (counts.sum(0) == 0).any()
+    if n_cls > 1 and case not in ("sweep", "wide"):
+        assert (cc > 0).sum() >= 2
+
+
+def _absorb_cases(s, c, plan):
+    """Win matrices of S x C whose only wins lie in the last strip of the
+    plan, in no row, at row 0, or spread with a column won in two strips."""
+    rng = np.random.default_rng(s + c)
+    last = (plan["strips"] - 1) * plan["rows_per_strip"]
+    out = {}
+    w = np.zeros((s, c), np.int8)
+    rr = rng.integers(last, s, c)
+    keep = rng.random(c) < 0.5
+    w[rr[keep], np.nonzero(keep)[0]] = rng.integers(1, 3, keep.sum())
+    out["last_strip"] = w
+    out["none"] = np.zeros((s, c), np.int8)
+    w = np.zeros((s, c), np.int8)
+    w[0] = rng.integers(0, 3, c)
+    out["row0"] = w
+    w = rng.choice(np.array([0, 1, 2], np.int8), (s, c), p=[0.98, 0.01, 0.01])
+    w[-1] = 1
+    out["spread"] = w
+    return out
+
+
+@pytest.mark.parametrize("shape", [(286, 700), (1001, 37), (2050, 513),
+                                   (4097, 16)])
+def test_absorb_rest_plain_matches_jax(shape):
+    """absorb_rest_plain against JAX's absorb_rest (first winning row, its
+    direction, -1 for none) on matrices shaped by the card's plan: S not a
+    multiple of the strips, wins only in the last strip, none, at row 0."""
+    s, c = shape
+    plan = kernels.absorb_rest_plan(s, c, 132)
+    # one strip up to ABSORB_ONE_STRIP rows; above it S is no multiple
+    assert plan["strips"] > 1 and s % plan["strips"] != 0 \
+        or s <= kernels.ABSORB_ONE_STRIP
+    for what, w in _absorb_cases(s, c, plan).items():
+        want = np.asarray(jbulk.absorb_rest(jnp.asarray(w)))
+        got = kernels.absorb_rest_plain(torch.from_numpy(w)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        got = kernels.absorb_rest(torch.from_numpy(w)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=what)
