@@ -257,11 +257,12 @@ class PackEngine:
                 self._run_group(group, all_seqs, results,
                                 (match, mismatch, go, ge), to_host)
             if pool is not None:
-                t0 = time.time()
+                t0 = time.perf_counter()
                 for i, fut in futures.items():
                     results[i] = fut.result()
                 self.stats["host_wait_s"] = round(
-                    self.stats.get("host_wait_s", 0.0) + time.time() - t0, 2)
+                    self.stats.get("host_wait_s", 0.0)
+                    + time.perf_counter() - t0, 2)
         finally:
             if pool is not None:
                 pool.shutdown()
@@ -290,14 +291,14 @@ class PackEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.stats[key] = round(self.stats.get(key, 0.0)
-                                    + time.time() - t0, 2)
-            return time.time()
+                                    + time.perf_counter() - t0, 2)
+            return time.perf_counter()
 
         w, n_cap = group[0][0]
         ids = [i for _, _, i in group]
         b = len(ids)
         r_max = max(len(all_seqs[i]) for i in ids)
-        tmark = time.time()
+        tmark = time.perf_counter()
         seqs_arr = np.zeros((b, r_max, w), np.uint8)
         lens = np.zeros((b, r_max), np.int32)
         n_reads = np.zeros((b,), np.int32)

@@ -40,6 +40,7 @@ from ..device import DEVICES
 from ..io import fastx, hpsio
 from ..parallel import launch
 from ..pipeline import stages
+from ..utils import metrics
 
 
 def _add_common_input(p):
@@ -278,8 +279,9 @@ def main(argv=None):
         print(f"{kind} clustering done", file=sys.stderr)
         print(f"{len(clusters)} {kind} clusters found", file=sys.stderr)
         if is_writer:
-            hpsio.write_clusters(clusters,
-                                 os.path.join(args.output, "clusters.out"))
+            with metrics.GLOBAL.span("cluster.write"):
+                hpsio.write_clusters(
+                    clusters, os.path.join(args.output, "clusters.out"))
         return 0
 
     if mode == "polish":

@@ -17,13 +17,18 @@ from ..config import ClusterParams, InputParams
 from ..io.fastx import Read, ReadSet, read_multiple_inputs_cluster, sort_read_set
 from ..io.hpsio import Cluster, CSeq, ClusterSet
 from ..ops.encode import reverse_complement_str
+from ..utils import metrics
 
 
 def load_cluster_inputs(input_csv: str, label_csv: str, inp: InputParams) -> ReadSet:
-    files = [f for f in input_csv.split(",") if f]
-    labels = [l for l in label_csv.split(",") if l] if label_csv else []
-    reads = read_multiple_inputs_cluster(files, labels, inp.raw, inp.lower_len, inp.upper_len)
-    sort_read_set(reads)
+    """The cluster mode's reads: read, length-filtered and sorted (span
+    ``cluster.parse`` of utils.metrics.GLOBAL)."""
+    with metrics.GLOBAL.span("cluster.parse"):
+        files = [f for f in input_csv.split(",") if f]
+        labels = [l for l in label_csv.split(",") if l] if label_csv else []
+        reads = read_multiple_inputs_cluster(files, labels, inp.raw,
+                                             inp.lower_len, inp.upper_len)
+        sort_read_set(reads)
     return reads
 
 

@@ -17,6 +17,7 @@ from rattle_tpu_torch.cluster import bulk, oracle
 from rattle_tpu_torch.cluster.bulk import BulkClusterEngine
 from rattle_tpu_torch.config import ClusterParams
 from rattle_tpu_torch.ops import gates, kernels
+from rattle_tpu_torch.utils import metrics
 from tests.conftest import make_read, mutate
 
 # the plain versions are many small torch ops; the run has several workers
@@ -244,6 +245,7 @@ def test_engine_host_reads_keep_the_rule(case):
                      err=0.04 if case == "overflow_tier" else 0.1)
     assert len(seqs) >= bulk.ORACLE_CUTOVER
     params = ClusterParams(is_rna=case != "cdna")
+    st0 = dict(metrics.GLOBAL.stages)
     eng = BulkClusterEngine(seqs, params, device="cpu")
     eng.k_block = 16
     if case == "all_borderline":
@@ -263,7 +265,9 @@ def test_engine_host_reads_keep_the_rule(case):
         [(c_.main_seq.seq_id, c_.main_seq.rev,
           [(s.seq_id, s.rev) for s in c_.seqs]) for c_ in want]
     # on the CPU no section has a device time
-    assert not any(k.endswith("_dev") for k in eng.phase_times)
+    job = {k for k, v in metrics.GLOBAL.stages.items() if v != st0.get(k)}
+    assert "cluster.wave" in job
+    assert not any(k.endswith("_dev") for k in job)
 
 
 # --------------------------------------------------------------------------
