@@ -29,7 +29,10 @@ rest are cheap-rejected (bases <= k * matches) or scored at the smallest M
 tier that fits.  The merge rounds (cluster.cpp:171-256) run the same
 machinery over cluster representatives with the B->b->0 threshold
 schedule; a score cache (outcomes are threshold-independent) spares
-re-gated pairs.
+re-gated pairs.  Between phases the clusters are arrays over the reads
+(``ClusterArrays``): a phase's membership is one lexsort and its
+representatives (get_main_seq, cluster.cpp:67-91) a few segment
+reductions; the ``List[Cluster]`` is built once, at the end.
 
 Exactness escapes, rescored on the host in f64 like the reference: a match
 count beyond the last M tier, and a variance within VAR_BAND_REL of t_v.
@@ -246,6 +249,114 @@ def shard_plan(world: int, rank: int, n: int) -> Tuple[int, int, int]:
 
 
 # --------------------------------------------------------------------------
+# cluster bookkeeping
+# --------------------------------------------------------------------------
+
+
+def main_positions(order: np.ndarray, starts: np.ndarray, rev: np.ndarray,
+                   old: np.ndarray, repr_percentile: float) -> np.ndarray:
+    """oracle.get_main_seq (cluster.cpp:67-91) for every cluster at once.
+
+    Cluster c's members are ``order[starts[c]:starts[c + 1]]`` in their
+    sorted order, ``rev`` is indexed by read, ``old[c]`` is the read its
+    member list began with before the sort.  From index ``int(size * p)``
+    (float64, as the reference) the first member on ``old``'s strand short
+    of the last index is the representative; where none is, ``old`` is,
+    even if the last member is on its strand.  Returns each
+    representative's position in ``order``."""
+    sizes = np.diff(starts)
+    j0 = (sizes * float(repr_percentile)).astype(np.int64)
+    cs = np.repeat(np.arange(len(sizes)), sizes)    # each position's cluster
+    k = np.arange(len(order)) - starts[cs]
+    hit = np.nonzero((k >= j0[cs]) & (k < sizes[cs] - 1)
+                     & (rev[order] == rev[old][cs]))[0]
+    first = np.ones(len(hit), bool)
+    first[1:] = cs[hit[1:]] != cs[hit[:-1]]
+    where = np.empty_like(order)
+    where[order] = np.arange(len(order))
+    main = where[old]
+    main[cs[hit[first]]] = hit[first]
+    return main
+
+
+@dataclasses.dataclass
+class ClusterArrays:
+    """The engine's clusters between phases, over the n length-sorted reads.
+
+    ``cid[i]``: read i's cluster, clusters in seed order; ``rev[i]``: its
+    strand in that cluster; ``order``: the reads cluster by cluster, each
+    cluster's in clusters.out order (length descending, then id
+    descending: get_main_seq's two stable sorts), cluster c's at
+    ``order[starts[c]:starts[c + 1]]``; ``main[c]``: its representative's
+    position in ``order``."""
+
+    cid: np.ndarray
+    rev: np.ndarray
+    order: np.ndarray
+    starts: np.ndarray
+    main: np.ndarray
+
+    @classmethod
+    def singletons(cls, n: int) -> "ClusterArrays":
+        """Every read its own cluster: the greedy pass is the first merge."""
+        ids = np.arange(n)
+        return cls(ids, np.zeros(n, bool), ids, np.arange(n + 1), ids)
+
+    @classmethod
+    def of_clusters(cls, clusters: List[Cluster], n: int) -> "ClusterArrays":
+        """The arrays of ``clusters`` (a checkpoint's), members in their
+        listed order."""
+        sizes = np.array([len(c.seqs) for c in clusters], np.int64)
+        order = np.fromiter((s.seq_id for c in clusters for s in c.seqs),
+                            np.int64, n)
+        rev = np.empty(n, bool)
+        rev[order] = np.fromiter((s.rev for c in clusters for s in c.seqs),
+                                 bool, n)
+        cid = np.empty(n, np.int64)
+        cid[order] = np.repeat(np.arange(len(clusters)), sizes)
+        starts = np.zeros(len(clusters) + 1, np.int64)
+        np.cumsum(sizes, out=starts[1:])
+        where = np.empty(n, np.int64)
+        where[order] = np.arange(n)
+        main = where[np.array([c.main_seq.seq_id for c in clusters],
+                              np.int64)]
+        return cls(cid, rev, order, starts, main)
+
+    def reps(self) -> np.ndarray:
+        """The representatives' read ids, in cluster order."""
+        return self.order[self.main]
+
+    def merged(self, owner: np.ndarray, revf: np.ndarray, lens: np.ndarray,
+               repr_percentile: float) -> "ClusterArrays":
+        """The clusters after a greedy pass over ``reps()``: cluster c joins
+        the group of seed cluster ``owner[c]``, its members' strands flipped
+        where ``revf[c]``; groups in seed order.  A group's member list
+        began with its first cluster's first member (cluster.cpp:171-256).
+        ``lens``: the reads' lengths."""
+        lead, group = np.unique(owner, return_index=True,
+                                return_inverse=True)[1:]
+        old = self.order[self.starts[lead]]
+        rev = self.rev ^ revf[self.cid]
+        cid = group[self.cid]
+        order = np.lexsort((-np.arange(len(cid)), -lens, cid))
+        starts = np.zeros(len(lead) + 1, np.int64)
+        np.cumsum(np.bincount(cid, minlength=len(lead)), out=starts[1:])
+        return ClusterArrays(cid, rev, order, starts,
+                             main_positions(order, starts, rev, old,
+                                            repr_percentile))
+
+    def to_clusters(self) -> List[Cluster]:
+        """The ``List[Cluster]`` (a CSeq a read, gene id -1; each main_seq
+        one of its cluster's members), counted as ``cluster.materialize``."""
+        metrics.GLOBAL.add("cluster.materialize")
+        seqs = [CSeq(i, r) for i, r in zip(self.order.tolist(),
+                                           self.rev[self.order].tolist())]
+        st = self.starts.tolist()
+        return [Cluster(seqs[m], seqs[a:b])
+                for a, b, m in zip(st, st[1:], self.main.tolist())]
+
+
+# --------------------------------------------------------------------------
 # engine
 # --------------------------------------------------------------------------
 
@@ -284,6 +395,7 @@ class BulkClusterEngine:
                 self._local_seqs = None
                 self.read_lens = [len(s) for s in self.seqs]
             self.n = len(self.read_lens)
+            self.lens_host = np.asarray(self.read_lens, np.int64)
             k = params.kmer_size
             if mesh is None:
                 self.sk = sketch if sketch is not None else \
@@ -876,9 +988,11 @@ class BulkClusterEngine:
 
     # ---------- frontier greedy ----------
 
-    def _greedy_pass(self, ids: np.ndarray, threshold: float):
+    def _greedy_pass(self, ids: np.ndarray, threshold: float
+                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Frontier-exact greedy absorption over ``ids`` (greedy order).
-        Returns [(seed_pos, [(member_pos, rev), ...])] in seed order."""
+        Returns each position's seed position (its own where it is a seed)
+        and its strand flag."""
         m = len(ids)
         owner = np.arange(m)
         revf = np.zeros(m, bool)
@@ -921,15 +1035,14 @@ class BulkClusterEngine:
             pool = np.concatenate(survivors) if survivors else rest[:0]
         if self.progress:
             metrics.print_progress(m, m)
-        groups: Dict[int, List[Tuple[int, bool]]] = {}
-        for pos in range(m):
-            groups.setdefault(int(owner[pos]), []).append(
-                (pos, bool(revf[pos])))
-        return [(seed, groups[seed]) for seed in sorted(groups)]
+        return owner, revf
 
     # ---------- public API ----------
 
     def cluster(self) -> List[Cluster]:
+        """The greedy pass, then the merge rounds, on ``ClusterArrays``; the
+        ``List[Cluster]`` is built at the end, inside the last phase's span,
+        and for each checkpoint record."""
         p = self.p
         ck = self.checkpoint
         # on a mesh only rank 0 writes the manifest; every rank reads it
@@ -937,49 +1050,38 @@ class BulkClusterEngine:
         record = ck.record if ck is not None and self.is_writer else None
         schedule = list(bv_threshold_schedule(p))
         phases_done = 0
-        clusters: List[Cluster] = []
+        st = ClusterArrays.singletons(self.n)
         if ck is not None:
             resume = ck.load()
             if resume is not None:
-                phases_done, clusters = resume
+                phases_done = resume[0]
+                st = ClusterArrays.of_clusters(resume[1], self.n)
             if self.mesh is not None:
                 launch.barrier()
+        out = None
 
         if phases_done == 0:
-            order = np.arange(self.n)
             with metrics.GLOBAL.span("cluster.greedy"):
-                groups = self._greedy_pass(order, p.bv_threshold)
-            for _seed, members in groups:
-                cseqs = [CSeq(m_, r_) for m_, r_ in members]
-                main = oracle.get_main_seq(cseqs, self.read_lens,
-                                           p.repr_percentile)
-                clusters.append(Cluster(main, cseqs))
+                st = st.merged(*self._greedy_pass(st.reps(), p.bv_threshold),
+                               self.lens_host, p.repr_percentile)
+                if not schedule:
+                    out = st.to_clusters()
             phases_done = 1
             if record is not None:
-                record(phases_done, clusters)
+                record(phases_done, st.to_clusters())
 
         with metrics.GLOBAL.span("cluster.merge"):
             for round_i, threshold in enumerate(schedule):
                 if round_i + 1 < phases_done:
                     continue  # merge round already checkpointed
-                reps = np.array([c.main_seq.seq_id for c in clusters])
-                merge_groups = self._greedy_pass(reps, threshold)
-                tmp: List[Cluster] = []
-                for _seed_cid, members in merge_groups:
-                    merged = Cluster(CSeq(-1, False), [])
-                    for cid, rev in members:
-                        for s in clusters[cid].seqs:
-                            merged.seqs.append(
-                                CSeq(s.seq_id, (not s.rev) if rev else s.rev,
-                                     s.gene_id))
-                    merged.main_seq = oracle.get_main_seq(
-                        merged.seqs, self.read_lens, p.repr_percentile)
-                    tmp.append(merged)
-                clusters = tmp
+                st = st.merged(*self._greedy_pass(st.reps(), threshold),
+                               self.lens_host, p.repr_percentile)
                 phases_done = round_i + 2
                 if record is not None:
-                    record(phases_done, clusters)
-        return clusters
+                    record(phases_done, st.to_clusters())
+            if out is None:
+                out = st.to_clusters()
+        return out
 
 
 def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
@@ -1009,7 +1111,9 @@ def cluster_reads_bulk(seqs: Sequence[str], params: ClusterParams,
     (``cluster.<section>_dev``), ``cluster.fetch`` (the host's waits in
     ``_read``); counters ``cluster.host_rescores``, ``cluster.waves``,
     ``cluster.host_reads``, ``cluster.rare_reads``,
-    ``cluster.wave_reads_max`` and the join's pairs (``_decide``)."""
+    ``cluster.wave_reads_max``, the join's pairs (``_decide``) and
+    ``cluster.materialize`` (``ClusterArrays.to_clusters``: one a run, one
+    more a checkpoint record)."""
     if len(seqs) < ORACLE_CUTOVER:
         if groups is None:
             return oracle.cluster_reads(seqs, params, progress=progress)

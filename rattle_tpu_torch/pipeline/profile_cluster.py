@@ -13,7 +13,8 @@ and counters a run (``utils.metrics.GLOBAL``: the host seconds of the
 parse, the engine's set-up, phases, waves, sections and fetches, the write,
 and on the card each section's device time ``*_dev`` from CUDA events; the
 join's pair counts), and from the spans the host split of a run
-(``host_split_s``), then once under torch.profiler (CPU + CUDA activities)
+(``host_split_s``) and the ``List[Cluster]`` builds a run
+(``materialize``), then once under torch.profiler (CPU + CUDA activities)
 for the device busy time (the union of kernels, copies and sets), the idle
 share (1 - busy / wall of the profiled run), the device's idle time split
 by the program's spans (each instant of an idle gap to the innermost
@@ -322,7 +323,8 @@ def main() -> int:
         head = dict(device=torch.cuda.get_device_name(0), reads=n_reads,
                     input=args.input, flags=flags, first_wall_s=first,
                     walls_s=walls, wall_s=wall, peak_mem_gib=peak,
-                    host_split_s=host)
+                    host_split_s=host,
+                    materialize=counters.get("cluster.materialize", 0.0))
         if args.wall_only:
             print(json.dumps(head))
             return 0

@@ -13,9 +13,10 @@ from rattle_tpu.ops.encode import reverse_complement_str
 from rattle_tpu.ops.sketch_device import build_device_sketch as jax_sketch
 from rattle_tpu_torch.cluster import bulk
 from rattle_tpu_torch.cluster.bulk import BulkClusterEngine, cluster_reads_bulk
-from rattle_tpu_torch.config import ClusterParams
+from rattle_tpu_torch.config import ClusterParams, bv_threshold_schedule
 from rattle_tpu_torch.io.hpsio import write_clusters
 from rattle_tpu_torch.ops.sketch_device import sketch_from_numpy
+from rattle_tpu_torch.utils import metrics
 from rattle_tpu_torch.utils.checkpoint import ClusterCheckpoint
 from tests.conftest import make_read, mutate
 
@@ -179,6 +180,63 @@ def test_engine_groups_and_checkpoint_resume(tmp_path):
     eng.checkpoint = ClusterCheckpoint(ck_dir, "k")
     assert eng.checkpoint.load()[0] == 2
     assert _sig(eng.cluster()) == _sig(want)
+
+
+@pytest.mark.parametrize("case", ["cdna", "groups"])
+def test_engine_merge_rounds_on_many_families(case, tmp_path):
+    """281 cDNA reads over 30 families at 14% error, half reverse-complemented:
+    the greedy pass splits the families and every merge round joins
+    clusters.  The oracle's clusters, signature for signature (for
+    ``groups``: three groups of ten families, each its own oracle run), one
+    ``List[Cluster]`` built a run (``cluster.materialize``), and with a
+    checkpoint one more for each recorded phase and the same clusters."""
+    seqs = _families(11, n_fam=30, per=(8, 12), err=0.14, revcomp=True)
+    params = ClusterParams(is_rna=False)
+    groups = None
+    if case == "groups":
+        # contiguous groups, each length-sorted, as --iso hands them over
+        g_of = np.random.default_rng(11).integers(0, 3, len(seqs))
+        idx = np.concatenate([np.nonzero(g_of == g)[0] for g in range(3)])
+        seqs = [seqs[i] for i in idx]
+        groups = g_of[idx]
+    eng = BulkClusterEngine(seqs, params, groups=groups, device="cpu")
+    merged = []
+    greedy_pass = eng._greedy_pass
+
+    def counting_pass(ids, threshold):
+        owner, revf = greedy_pass(ids, threshold)
+        merged.append(len(ids) - len(np.unique(owner)))
+        return owner, revf
+
+    eng._greedy_pass = counting_pass
+    before = metrics.GLOBAL.counters.get("cluster.materialize", 0)
+    got = _sig(eng.cluster())
+    assert metrics.GLOBAL.counters["cluster.materialize"] - before == 1
+    schedule = bv_threshold_schedule(params)
+    assert len(merged) == 1 + len(schedule)
+    assert sum(m > 0 for m in merged[1:]) >= 3, merged
+    want = []
+    for g in ([None] if groups is None else range(3)):
+        idx = np.arange(len(seqs)) if g is None else np.nonzero(groups == g)[0]
+        for c in oracle.cluster_reads([seqs[i] for i in idx], params):
+            want.append((int(idx[c.main_seq.seq_id]), c.main_seq.rev,
+                         [(int(idx[s.seq_id]), s.rev) for s in c.seqs]))
+    assert got == want
+
+    records = []
+
+    class CountingCheckpoint(ClusterCheckpoint):
+        def record(self, phases_done, clusters):
+            records.append(phases_done)
+            super().record(phases_done, clusters)
+
+    eng = BulkClusterEngine(seqs, params, groups=groups, device="cpu")
+    eng.checkpoint = CountingCheckpoint(str(tmp_path / "ck"), "k")
+    before = metrics.GLOBAL.counters["cluster.materialize"]
+    assert _sig(eng.cluster()) == got
+    assert records == list(range(1, len(schedule) + 2))
+    assert metrics.GLOBAL.counters["cluster.materialize"] - before == \
+        1 + len(records)
 
 
 def test_replays_match_jax():
