@@ -1,11 +1,13 @@
 """The control of a cell's comparison: a whole run of the harness
 (``harness.execute``) with the plain reference put in the program's place,
-a guarantee of the configuration broken (``match_cap``: each pair's matches
-cut at its first 128, the program's first tier without its rescue; the
-configuration counts every common k-mer), on a cell's own pool sets and
-judged by the run's own comparison.  It has to come out not correct.
+a guarantee of the configuration broken (each of the mode's ``CONTROLS``,
+else ``match_cap``: each pair's matches cut at its first 128, the
+program's first tier without its rescue; the configuration counts every
+common k-mer), on a cell's own pool sets and judged by the run's own
+comparison.  Each has to come out not correct.
 
     python3 -m gpubench.control --workload <cell> --seeds <n> [<n> ...]
+        [--control <name>]
 
 Prints the numbers compared of each seed's run and its result line (the
 metrics of a run with no program in it mean nothing).  Needs no card: the
@@ -65,19 +67,24 @@ def main(argv: List[str]) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m gpubench.control")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--control", help="a guarantee the mode's reference can "
+                    "break (default: each of the mode's controls)")
     args = ap.parse_args(argv)
     cell, config, traffic, _e = harness.load_cell(harness.ROOT, args.workload,
                                                   0)
-    rows: Dict[int, dict] = {}
-    for seed in args.seeds:
-        out = run_control(cell, config, traffic, seed, "match_cap")
-        rows[seed] = out
-        print(f"{args.workload} match_cap seed {seed}: correct "
-              f"{out['correct']}, " + ", ".join(
-                  f"{k} {c['value']} (limit {c['limit']})"
-                  for k, c in out["checks"].items()), flush=True)
-    print(json.dumps({"workload": args.workload, "control": "match_cap",
-                      "runs": rows}))
+    controls = getattr(harness.load_mode(traffic), "CONTROLS", ("match_cap",))
+    if args.control:
+        controls = (args.control,)
+    rows: Dict[str, Dict[int, dict]] = {}
+    for control in controls:
+        for seed in args.seeds:
+            out = run_control(cell, config, traffic, seed, control)
+            rows.setdefault(control, {})[seed] = out
+            print(f"{args.workload} {control} seed {seed}: correct "
+                  f"{out['correct']}, " + ", ".join(
+                      f"{k} {c['value']} (limit {c['limit']})"
+                      for k, c in out["checks"].items()), flush=True)
+    print(json.dumps({"workload": args.workload, "runs": rows}))
     return 0
 
 

@@ -290,7 +290,9 @@ def execute(cell: str, chips: int, config: dict, traffic: dict,
                 break
         host1 = hoststate.snapshot()
         traced = []
-        if trace:
+        # traced jobs after the window: for the per-layer metrics, and for
+        # an end-to-end metric that the device's trace gives
+        if trace or any(m.get("source") == "device_trace" for m in entries):
             for k in range(pool_n):
                 traced.append(prog.traced_job(argvs[k], mode))
                 outs.append((k, mode.output(outs_dir[k])))

@@ -1,10 +1,8 @@
-"""job_s_p90.cluster: the 90th percentile (nearest rank) of the window's job
-walls."""
+"""job_s_p90.cluster: the 90th percentile (nearest rank) of the window's
+cluster job walls."""
 
-from gpubench import trace
+from gpubench.metrics_util import job_s_p90
 
 
 def read(run):
-    if run["mode"] != "cluster" or not run["jobs"]:
-        return None
-    return trace.percentile([j["wall_s"] for j in run["jobs"]], 90)
+    return job_s_p90(run, "cluster")

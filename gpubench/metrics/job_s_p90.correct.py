@@ -1,0 +1,8 @@
+"""job_s_p90.correct: the 90th percentile (nearest rank) of the window's
+correct job walls."""
+
+from gpubench.metrics_util import job_s_p90
+
+
+def read(run):
+    return job_s_p90(run, "correct")

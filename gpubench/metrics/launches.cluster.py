@@ -1,11 +1,8 @@
 """launches.cluster: the kernel wrappers' launch counters
-(``ops.kernels.launches()``), summed, a job."""
+(``ops.kernels.launches()``), summed, a cluster job."""
+
+from gpubench.metrics_util import launches
 
 
 def read(run):
-    if run["mode"] != "cluster" or not run["jobs"]:
-        return None
-    per = [sum(j["launches"].values()) for j in run["jobs"]]
-    if not any(per):
-        return None
-    return sum(per) / len(per)
+    return launches(run, "cluster")

@@ -182,3 +182,47 @@ def test_a_mode_added_as_a_file_runs_without_edits(bench, tmp_path):
     reads = json.loads((root / "gpubench/configs" / os.path.basename(
         b["configs"][0]["file"])).read_text())["data"]["reads"]
     assert out["metrics"]["echo_work"]["value"] == 2 * reads
+
+
+DRIVE_TRACED = DRIVE.replace("""        return dict(wall_s=0.001, cpu_s=0.0, stages={}, launches={})
+""", """        return dict(wall_s=0.001, cpu_s=0.0, stages={}, launches={})
+
+    def traced_job(self, argv, mode):
+        rec = self.job(argv)
+        rec.update(window=(0.0, 1.0), device=[("k", 0.25, 0.5)], spans=[])
+        return rec
+""")
+
+
+@pytest.mark.parametrize("source,traced", [("host_clock", 0),
+                                           ("device_trace", 2)])
+def test_a_device_trace_end_to_end_metric_traces_after_the_window(
+        bench, tmp_path, source, traced):
+    """An untraced run takes one traced job a pool set after the window only
+    where an end-to-end metric of its cell comes from the device's trace;
+    its line then still has no busy_s, window_s or breakdown."""
+    import subprocess
+    import sys
+    root = tmp_path
+    shutil.copytree(os.path.join(ROOT, "gpubench"), root / "gpubench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "gpubench/modes/echo.py").write_text(DUMMY_MODE)
+    (root / "gpubench/traffic/echo.mix.json").write_text(json.dumps(
+        {"mode": "echo", "pool": 2, "data": {}}))
+    (root / "gpubench/metrics/echo_traced.py").write_text(
+        "def read(run):\n    return float(len(run['traced']))\n")
+    b = json.loads(json.dumps(bench))
+    b["workloads"].append({"name": "dummy.cell",
+                           "config": b["configs"][0]["name"],
+                           "traffic": "echo.mix", "chips": 1, "why": "test"})
+    b["end_to_end"].append({"name": "echo_traced", "unit": "jobs",
+                            "better": "lower", "bound": 0.01,
+                            "source": source, "workloads": ["dummy.cell"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    res = subprocess.run([sys.executable, "-c", DRIVE_TRACED], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["correct"] and out["attempted"] == 2 + traced
+    assert out["metrics"]["echo_traced"]["value"] == traced
+    assert "busy_s" not in out["device"] and "breakdown" not in out

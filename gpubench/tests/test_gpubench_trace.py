@@ -47,6 +47,12 @@ def _run():
     ("join_expand_ms", 100.0),
     ("gate_block_ms", 100.0),
     ("idle_share.cluster", 75.0),
+    ("job_device_ms.cdna", 250.0),
+    ("cluster_reads_per_s.cdna", 400 / 2.6),
+    ("join_expand_ms.cdna", 100.0),
+    ("gate_block_ms.cdna", 100.0),
+    ("wave_dev_ms.cdna", 3.0),
+    ("launches.cdna", 5.0),
 ])
 def test_metric_readers(name, want):
     assert harness.reader(name)(_run()) == pytest.approx(want)
@@ -59,7 +65,9 @@ def test_readers_find_nothing_off_the_card():
         j["launches"] = {}
         j["stages"] = {"cluster.greedy": 0.1, "cluster.merge": 0.2}
     for name in ("wave_dev_ms.cluster", "launches.cluster", "join_expand_ms",
-                 "gate_block_ms", "idle_share.cluster"):
+                 "gate_block_ms", "idle_share.cluster", "job_device_ms.cdna",
+                 "wave_dev_ms.cdna", "launches.cdna", "join_expand_ms.cdna",
+                 "gate_block_ms.cdna"):
         assert harness.reader(name)(run) is None
 
 
@@ -68,3 +76,10 @@ def test_breakdown_names_kernels_and_gaps():
     names = [k for k, _v in bd["device_ops"]]
     assert names[0] in ("join_expand_kernel", "gate_tile_kernel")
     assert bd["idle_gaps"] == [["cli", pytest.approx(0.75)]]
+
+
+def test_device_ms_is_none_outside_its_mode():
+    run = _run()
+    run["mode"] = "correct"
+    assert harness.reader("job_device_ms.cdna")(run) is None
+    assert harness.reader("cluster_reads_per_s.cdna")(run) is None
