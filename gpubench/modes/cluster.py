@@ -14,6 +14,8 @@ processes, so it imports nothing of the program and no torch.
 from __future__ import annotations
 
 import os
+import sys
+import time
 from typing import Dict, List, Tuple
 
 from .. import hpsio, synth
@@ -103,11 +105,14 @@ def reference(inputs: dict, config: dict, control: str = ""
     files, in their order.  ``control`` "match_cap" keeps each pair's first
     128 (pos1, pos2) matches only (the program's first tier, with no rescue
     of longer lists)."""
+    t0 = time.perf_counter()
     kw = {"match_cap": dict(match_cap=128), "": {}}[control]
     c = config["cluster"]
     seqs = [s for path in inputs["fastq"] for s in read_fastq(path)]
     out = ref.cluster_file_order(seqs, _params(config, **kw),
                                  c["lower_length"], c["upper_length"])
+    print(f"reference: {len(seqs)} reads, {ref.share_of_cores()} threads, "
+          f"{time.perf_counter() - t0:.3f} s", file=sys.stderr, flush=True)
     return {OUTPUTS[0]: hpsio.dumps(
         [((m[0], m[1], -1), [(s, r, -1) for s, r in mem]) for m, mem in out])}
 

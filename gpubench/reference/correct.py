@@ -15,31 +15,24 @@ For each cluster, in the order of ``clusters.out``:
 * the cluster's consensus (:488-556): a lone pack's, or the consensus of the
   MSA of its packs' consensi, trimmed; quality ``K`` throughout.
 
-The POA is plain scalar C (``poa_ref.c``), built with ``cc -O2`` into
-``build/gpubench_cache/`` of the checkout at first use and called through
-ctypes, which lets other threads run; a pool of threads runs the packs.
+The POA is plain scalar C (``poa_ref.c``, built and loaded by
+``native.load``), called through ctypes, which lets other threads run; a
+pool of threads runs the packs.
 Nothing here imports the program.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
 import re
-import subprocess
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(os.path.dirname(HERE))
-SOURCE = os.path.join(HERE, "poa_ref.c")
-CACHE = os.path.join(ROOT, "build", "gpubench_cache")
+from . import native
 
 GAP = ord("-")
 # the letters a column counts, in the order RATTLE's std::unordered_map
@@ -53,35 +46,18 @@ CONSENSUS_QUALITY = "K"
 ERR_RATIO = 30.0        # the substitution's error ratio (main.cpp:405)
 _BASE = re.compile(rb"[^-]")
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.poa_msa.argtypes = [
+        ctypes.c_int, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_char)),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.poa_msa.restype = ctypes.c_int
+    lib.poa_free.argtypes = [ctypes.POINTER(ctypes.c_char)]
+    lib.poa_free.restype = None
 
 
-def _lib():
-    """poa_ref.c as a shared library, built once a source (its hash in the
-    library's name) into the checkout's cache."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            with open(SOURCE, "rb") as fh:
-                tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-            path = os.path.join(CACHE, f"poa_ref.{tag}.so")
-            if not os.path.exists(path):
-                os.makedirs(CACHE, exist_ok=True)
-                tmp = f"{path}.{os.getpid()}.tmp"
-                subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", tmp,
-                                SOURCE], check=True)
-                os.replace(tmp, path)
-            lib = ctypes.CDLL(path)
-            lib.poa_msa.argtypes = [
-                ctypes.c_int, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_char)),
-                ctypes.POINTER(ctypes.c_int)]
-            lib.poa_msa.restype = ctypes.c_int
-            lib.poa_free.argtypes = [ctypes.POINTER(ctypes.c_char)]
-            lib.poa_free.restype = None
-            _LIB = lib
-    return _LIB
+def _lib() -> ctypes.CDLL:
+    return native.load("poa_ref.c", _declare)
 
 
 def msa(seqs: Sequence[bytes], tiebreak_ef: bool = False) -> List[bytearray]:

@@ -352,11 +352,11 @@ def _record(mode_name):
 
 
 NEW = ("correct_bases_per_s", "poa_align_ms", "idle_share.correct",
-       "launches.correct", "job_s_p90.correct")
+       "launches.correct", "job_s_p90.correct", "job_device_ms.correct")
 
 
 @pytest.mark.parametrize("name,want", zip(NEW, (2000 / 22.0, 4000.0, 50.0,
-                                                6.0, 12.0)))
+                                                6.0, 12.0, 5000.0)))
 def test_readers_read_correct_runs_only(name, want):
     read = harness.reader(name)
     assert read(_record("correct")) == pytest.approx(want)
